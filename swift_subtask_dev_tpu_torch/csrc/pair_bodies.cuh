@@ -1,0 +1,340 @@
+// Pair bodies of the flat pair kernel (csrc/pair_flat.cu).
+//
+// Each body is the per-pair evaluation of one loop of ops/hydro_flat.py,
+// with the same formulas and the same f32 operation order as the plain
+// torch callbacks there (models/sph/sphenix.py density_terms,
+// gradient_terms, force_terms; ops/p2p_gravity.py force_pot_factors).
+// The library is built without fast math and without FMA contraction, so
+// each expression rounds as its torch counterpart does.
+//
+// A body is a struct with
+//   F, NS, NM        field count, sum outputs, max outputs
+//   eval(si, nj, dx, dy, dz, r2, prm, sums, maxes) -> ok_extra
+// si: the i slot's F fields (registers); nj: the j row's F fields (shared
+// memory).  Field indices follow the body's field tuple in
+// ops/hydro_flat.py; parameter indices follow PairBody.params.
+//
+// rsqrt: rsqrtf (the CUDA intrinsic PyTorch's own rsqrt uses), <= 2 ulp.
+// erfc: the Abramowitz & Stegun 7.1.26 polynomial, as the reference.
+
+#pragma once
+
+#include <math.h>
+
+#define FL(x) ((float)(x))   // a python float literal, rounded to f32
+
+constexpr int MAX_PARAMS = 24;
+
+struct BodyParams {
+  float v[MAX_PARAMS];
+};
+
+// common field indices (every body starts with mask, off0, off1, off2)
+constexpr int I_MASK = 0, I_OFF0 = 1, I_OFF1 = 2, I_OFF2 = 3;
+
+// kernel constants shared by the hydro bodies: (gamma2, gamma_inv, g3, g4)
+constexpr int P_GAMMA2 = 0, P_GAMMA_INV = 1, P_G3 = 2, P_G4 = 3;
+// cosmology factors of the gradient and force bodies: (a^2 H, fac_mu)
+constexpr int P_A2H = 4, P_FAC_MU = 5;
+
+__device__ __forceinline__ float r_inv_of(float r2) {
+  return r2 > 0.f ? rsqrtf(fmaxf(r2, FL(1e-38))) : 0.f;
+}
+
+// Cubic spline in truncated-power form: w(x) = (1-x)_+^3 - 4 (1/2-x)_+^3,
+// x = u / gamma (models/sph/kernels.py SPHKernel.deval).
+__device__ __forceinline__ void cubic_deval(float u, const BodyParams& p,
+                                            float& w, float& dw) {
+  const float x = u * p.v[P_GAMMA_INV];
+  const float t1 = fmaxf(1.f - x, 0.f);
+  const float pw1 = t1 * t1;
+  const float wt1 = 1.f * (pw1 * t1);
+  const float dwt1 = -3.f * pw1;
+  const float t2 = fmaxf(0.5f - x, 0.f);
+  const float pw2 = t2 * t2;
+  const float wt2 = -4.f * (pw2 * t2);
+  const float dwt2 = 12.f * pw2;
+  w = (wt1 + wt2) * p.v[P_G3];
+  dw = (dwt1 + dwt2) * p.v[P_G4];
+}
+
+// (F, P) softened + erfc-truncated force/potential factors
+// (ops/p2p_gravity.py force_pot_factors with trunc=True: the P2P pairs
+// always pair with the PM mesh).
+__device__ __forceinline__ void force_pot_factors(float r2, float H_inv,
+                                                  float H3_inv,
+                                                  float r_s_inv,
+                                                  float& F, float& P) {
+  const float r_inv = r_inv_of(r2);
+  const float r = r2 * r_inv;
+  const float u = r * H_inv;
+  float W = FL(21.0) * u - FL(90.0);
+  W = W * u + FL(140.0);
+  W = W * u - FL(84.0);
+  W = W * u;
+  W = W * u + FL(14.0);
+  const float r_inv2 = r_inv * r_inv;
+  const bool inside = u < 1.f;
+  F = inside ? W * H3_inv : r_inv2 * r_inv;
+  const float u2 = u * u;
+  const float S = u2 * (FL(7.0) + u2 * (FL(-21.0) + u * (FL(28.0) + u * (
+      FL(-15.0) + FL(3.0) * u))));
+  P = inside ? (FL(3.0) - S) * H_inv : r_inv;
+  const float x = FL(0.5) * r * r_s_inv;
+  const float e = expf(-x * x);
+  const float t = 1.f / (1.f + FL(0.3275911) * x);
+  const float poly = t * (FL(0.254829592) + t * (FL(-0.284496736) + t * (
+      FL(1.421413741) + t * (FL(-1.453152027) + t * FL(1.061405429)))));
+  const float erfc = poly * e;
+  F = F * (erfc + FL(2.0 * 0.5641895835477563) * x * e);
+  P = P * erfc;
+}
+
+// ---------------------------------------------------------------------------
+// density: fields (mask, off0-2, v0-2, h, hinv, m); 8 sums
+// ---------------------------------------------------------------------------
+struct Density {
+  static constexpr int F = 10, NS = 8, NM = 0, NP = 4;
+  enum { V0 = 4, H = 7, HINV = 8, M = 9 };
+  static __device__ __forceinline__ bool eval(
+      const float* si, const float* nj, float dx0, float dx1, float dx2,
+      float r2, const BodyParams& p, float* sums, float*) {
+    const float h_i = si[H];
+    const bool ok = r2 < p.v[P_GAMMA2] * h_i * h_i;
+    const float dv0 = si[V0] - nj[V0];
+    const float dv1 = si[V0 + 1] - nj[V0 + 1];
+    const float dv2 = si[V0 + 2] - nj[V0 + 2];
+    const float m_j = nj[M];
+    const float r_inv = r_inv_of(r2);
+    const float r = r2 * r_inv;
+    const float ui = r * si[HINV];
+    float wi, wi_dx;
+    cubic_deval(ui, p, wi, wi_dx);
+    const float faci = m_j * wi_dx * r_inv;
+    const float dvdr = dv0 * dx0 + dv1 * dx1 + dv2 * dx2;
+    const float curl0 = dv1 * dx2 - dv2 * dx1;
+    const float curl1 = dv2 * dx0 - dv0 * dx2;
+    const float curl2 = dv0 * dx1 - dv1 * dx0;
+    const float kick = FL(3.0) * wi + ui * wi_dx;
+    sums[0] = m_j * wi;
+    sums[1] = -m_j * kick;
+    sums[2] = wi;
+    sums[3] = -kick;
+    sums[4] = -faci * dvdr;
+    sums[5] = faci * curl0;
+    sums[6] = faci * curl1;
+    sums[7] = faci * curl2;
+    return ok;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// gradient: fields (mask, off0-2, v0-2, h, hinv, m, u, rhoinv, cs, av);
+// 1 sum (laplace_u), 2 maxes (v_sig, alpha_visc_max_ngb)
+// ---------------------------------------------------------------------------
+struct Gradient {
+  static constexpr int F = 14, NS = 1, NM = 2, NP = 6;
+  enum { V0 = 4, H = 7, HINV = 8, M = 9, U = 10, RHOINV = 11, CS = 12,
+         AV = 13 };
+  static __device__ __forceinline__ bool eval(
+      const float* si, const float* nj, float dx0, float dx1, float dx2,
+      float r2, const BodyParams& p, float* sums, float* maxes) {
+    const float h_i = si[H];
+    const bool ok = r2 < p.v[P_GAMMA2] * h_i * h_i;
+    const float dv0 = si[V0] - nj[V0];
+    const float dv1 = si[V0 + 1] - nj[V0 + 1];
+    const float dv2 = si[V0 + 2] - nj[V0 + 2];
+    const float r_inv = r_inv_of(r2);
+    const float r = r2 * r_inv;
+    const float dvdr = dv0 * dx0 + dv1 * dx1 + dv2 * dx2;
+    const float dvdr_Hubble = dvdr + p.v[P_A2H] * r2;
+    const float omega_ij = fminf(dvdr_Hubble, 0.f);
+    const float mu_ij = p.v[P_FAC_MU] * r_inv * omega_ij;
+    const float new_v_sig = si[CS] + nj[CS] - FL(3.0) * mu_ij;
+    const float ui = r * si[HINV];
+    float wi, wi_dx;
+    cubic_deval(ui, p, wi, wi_dx);
+    const float delta_u_factor = (si[U] - nj[U]) * r_inv;
+    sums[0] = nj[M] * delta_u_factor * wi_dx * nj[RHOINV];
+    maxes[0] = new_v_sig;
+    maxes[1] = nj[AV];
+    return ok;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// force terms (models/sph/sphenix.py force_terms) on the force field
+// layout: (mask, off0-2, v0-2, h, m, u, rho, P, cs, fgh, bal, al, ad, tb,
+// hinv, minv, rhoinv, pr2)
+// ---------------------------------------------------------------------------
+enum ForceField { FV0 = 4, FH = 7, FM = 8, FU = 9, FRHO = 10, FP = 11,
+                  FCS = 12, FFGH = 13, FBAL = 14, FAL = 15, FAD = 16,
+                  FTB = 17, FHINV = 18, FMINV = 19, FRHOINV = 20,
+                  FPR2 = 21 };
+
+struct ForceTerms {
+  float a0, a1, a2, u_dt, h_dt, v_sig;
+};
+
+__device__ __forceinline__ bool hydro_ok(const float* si, const float* nj,
+                                         float r2, const BodyParams& p) {
+  const float hm = fmaxf(si[FH], nj[FH]);
+  return r2 < p.v[P_GAMMA2] * (hm * hm);
+}
+
+__device__ __forceinline__ ForceTerms force_terms(
+    const float* si, const float* nj, float dx0, float dx1, float dx2,
+    float r2, const BodyParams& p) {
+  const float r_inv = r_inv_of(r2);
+  const float r = r2 * r_inv;
+
+  const float hinv_i = si[FHINV], hinv_j = nj[FHINV];
+  const float hid_inv = (hinv_i * hinv_i) * (hinv_i * hinv_i);
+  const float xi = r * hinv_i;
+  float wi, wi_dx;
+  cubic_deval(xi, p, wi, wi_dx);
+  const float wi_dr = hid_inv * wi_dx;
+
+  const float hjd_inv = (hinv_j * hinv_j) * (hinv_j * hinv_j);
+  const float xj = r * hinv_j;
+  float wj, wj_dx;
+  cubic_deval(xj, p, wj, wj_dx);
+  const float wj_dr = hjd_inv * wj_dx;
+
+  const float dv0 = si[FV0] - nj[FV0];
+  const float dv1 = si[FV0 + 1] - nj[FV0 + 1];
+  const float dv2 = si[FV0 + 2] - nj[FV0 + 2];
+  const float dvdr = dv0 * dx0 + dv1 * dx1 + dv2 * dx2;
+  const float dvdr_Hubble = dvdr + p.v[P_A2H] * r2;
+  const float omega_ij = fminf(dvdr_Hubble, 0.f);
+  const float mu_ij = p.v[P_FAC_MU] * r_inv * omega_ij;
+
+  const float v_sig = si[FCS] + nj[FCS] - FL(3.0) * mu_ij;
+
+  const float f_ij = 1.f - si[FFGH] * nj[FMINV];
+  const float f_ji = 1.f - nj[FFGH] * si[FMINV];
+
+  const float P_i = si[FP], P_j = nj[FP];
+  const float rho_sum = si[FRHO] + nj[FRHO];
+  const float P_sum = P_i + P_j + FL(1e-30);
+  const float inv_rhoP = 1.f / (rho_sum * P_sum);
+  const float rho_ij_inv = inv_rhoP * P_sum;
+  const float P_sum_inv = inv_rhoP * rho_sum;
+  const float alpha = si[FAL] + nj[FAL];
+  const float visc = FL(-0.25) * alpha * v_sig * mu_ij
+      * (si[FBAL] + nj[FBAL]) * rho_ij_inv;
+  const float visc_acc_term = FL(0.5) * visc
+      * (wi_dr * f_ij + wj_dr * f_ji) * r_inv;
+
+  const float P_over_rho2_i = si[FPR2] * f_ij;
+  const float P_over_rho2_j = nj[FPR2] * f_ji;
+  const float sph_acc_term = (P_over_rho2_i * wi_dr
+                              + P_over_rho2_j * wj_dr) * r_inv;
+  const float acc = sph_acc_term + visc_acc_term;
+
+  const float sph_du_term_i = P_over_rho2_i * dvdr * r_inv * wi_dr;
+  const float visc_du_term = FL(0.5) * visc_acc_term * dvdr_Hubble;
+
+  const float alpha_diff = (P_i * si[FAD] + P_j * nj[FAD]) * P_sum_inv;
+  const float v_diff = alpha_diff * FL(0.5) * (
+      sqrtf(FL(2.0) * fabsf(P_i - P_j) * rho_ij_inv)
+      + fabsf(p.v[P_FAC_MU] * r_inv * dvdr_Hubble));
+  const float diff_du_term = v_diff * (si[FU] - nj[FU]) * (
+      f_ij * wi_dr * si[FRHOINV] + f_ji * wj_dr * nj[FRHOINV]);
+
+  const float du_dt_i = sph_du_term_i + visc_du_term + diff_du_term;
+
+  const float m_j = nj[FM];
+  ForceTerms t;
+  t.a0 = -m_j * acc * dx0;
+  t.a1 = -m_j * acc * dx1;
+  t.a2 = -m_j * acc * dx2;
+  t.u_dt = du_dt_i * m_j;
+  t.h_dt = -m_j * dvdr * r_inv * nj[FRHOINV] * wi_dr;
+  t.v_sig = v_sig;
+  return t;
+}
+
+// ---------------------------------------------------------------------------
+// force: 5 sums (a_hydro0-2, u_dt, h_dt), 2 maxes (v_sig, -neighbour bin)
+// ---------------------------------------------------------------------------
+struct Force {
+  static constexpr int F = 22, NS = 5, NM = 2, NP = 6;
+  static __device__ __forceinline__ bool eval(
+      const float* si, const float* nj, float dx0, float dx1, float dx2,
+      float r2, const BodyParams& p, float* sums, float* maxes) {
+    const bool ok = hydro_ok(si, nj, r2, p);
+    const ForceTerms t = force_terms(si, nj, dx0, dx1, dx2, r2, p);
+    sums[0] = t.a0;
+    sums[1] = t.a1;
+    sums[2] = t.a2;
+    sums[3] = t.u_dt;
+    sums[4] = t.h_dt;
+    const float tb = nj[FTB];
+    maxes[0] = t.v_sig;
+    maxes[1] = tb > 0.f ? -tb : FL(-64.0);
+    return ok;
+  }
+};
+
+// gravity parameters after the hydro ones:
+// (r_cut2, H_inv, H3_inv, r_s_inv, G)
+constexpr int P_RCUT2 = 6, P_HINV = 7, P_H3INV = 8, P_RSINV = 9, P_G = 10;
+
+// ---------------------------------------------------------------------------
+// force + short-range gravity, fused: 9 sums (hydro 5 masked by the hydro
+// range, a_grav0-2 and pot masked by r_cut), 2 maxes; force fields + gm
+// ---------------------------------------------------------------------------
+struct ForceGravity {
+  static constexpr int F = 23, NS = 9, NM = 2, NP = 11;
+  enum { GM = 22 };
+  static __device__ __forceinline__ bool eval(
+      const float* si, const float* nj, float dx0, float dx1, float dx2,
+      float r2, const BodyParams& p, float* sums, float* maxes) {
+    const bool ok_h = hydro_ok(si, nj, r2, p);
+    const ForceTerms t = force_terms(si, nj, dx0, dx1, dx2, r2, p);
+    const float wh = ok_h ? 1.f : 0.f;
+    const bool ok_g = r2 < p.v[P_RCUT2];
+    float Fg, Pg;
+    force_pot_factors(r2, p.v[P_HINV], p.v[P_H3INV], p.v[P_RSINV], Fg,
+                      Pg);
+    const float gm = (p.v[P_G] * (ok_g ? 1.f : 0.f)) * nj[GM];
+    const float gmF = gm * Fg;
+    sums[0] = t.a0 * wh;
+    sums[1] = t.a1 * wh;
+    sums[2] = t.a2 * wh;
+    sums[3] = t.u_dt * wh;
+    sums[4] = t.h_dt * wh;
+    sums[5] = -gmF * dx0;
+    sums[6] = -gmF * dx1;
+    sums[7] = -gmF * dx2;
+    sums[8] = -gm * Pg;
+    const float tb = nj[FTB];
+    maxes[0] = ok_h ? t.v_sig : -INFINITY;
+    maxes[1] = (ok_h && tb > 0.f) ? -tb : FL(-64.0);
+    return ok_h || ok_g;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// P2P gravity: fields (mask, off0-2, h, m); 4 sums (acc0-2, pot);
+// parameters (r_cut2, H_inv, H3_inv, r_s_inv, G)
+// ---------------------------------------------------------------------------
+struct P2PGravity {
+  static constexpr int F = 6, NS = 4, NM = 0, NP = 5;
+  enum { M = 5 };
+  static __device__ __forceinline__ bool eval(
+      const float* si, const float* nj, float dx0, float dx1, float dx2,
+      float r2, const BodyParams& p, float* sums, float*) {
+    const bool ok = r2 < p.v[0];
+    float Fg, Pg;
+    force_pot_factors(r2, p.v[1], p.v[2], p.v[3], Fg, Pg);
+    const float gm = p.v[4] * nj[M];
+    const float gmF = gm * Fg;
+    sums[0] = -gmF * dx0;
+    sums[1] = -gmF * dx1;
+    sums[2] = -gmF * dx2;
+    sums[3] = -gm * Pg;
+    return ok;
+  }
+};

@@ -1,0 +1,644 @@
+"""The engine — one-species SPHENIX + P3M gas on the flat column grid.
+
+Port of the main path of the reference's ``engine.py``: the same step
+
+    drift -> trigger-based z-sorted rebucket -> density + ghost ->
+    gradient -> fused force + short-range gravity -> kick2 -> timestep ->
+    kick1
+
+with the PM mesh on its own split timestep, and the same host/device
+split: the host owns the exact 64-bit integer timeline and hands the
+device small per-bin tables (:class:`StepTables`).  The reference's traced
+control flow becomes host control: the ghost's ``while_loop`` is a Python
+loop that reads ``conv.all()`` each trip; the rebucket's ``cond`` is an
+``if``; ``multi_step``'s ``scan`` is a Python loop that keeps the bin
+deviation flag on the device until ``run_fixed_dt`` reads it once.
+
+Left out (see ROADMAP.md): the timestep limiter, re-gridding (a
+:class:`RegridNeeded` is raised, not retried), cosmology, cooling, the
+other backends and multi-species runs.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .grid.cellgrid import CellGrid, bucket_fields, rebucket_offsets
+from .models.sph import sphenix
+from .models.sph.sphenix import CosmoFactors, SPHENIXParams
+from .ops import hydro_flat
+from .utils import timeline as tl
+
+F32 = torch.float32
+I32 = torch.int32
+NBINS = tl.NUM_TIME_BINS
+
+# the identity cosmology as python-float literals (the reference's
+# _NO_COSMO_LIT): every a/H factor folds into the pair bodies' constants
+NO_COSMO = CosmoFactors.no_cosmo()
+
+
+def _f32(x: float) -> float:
+    """A python float rounded to f32 (the reference's jnp.float32(x))."""
+    return float(np.float32(x))
+
+
+class StepTables(NamedTuple):
+    """Per-step host-built tables indexed by time bin (0..56)."""
+
+    active: torch.Tensor       # (57,) bool  — bin is active at ti_current
+    dt_half: torch.Tensor      # (57,) f32   — half-step per bin: every
+    # kick (velocity and thermal, kick1 and kick2) without cosmology
+    dt_alpha: torch.Tensor     # (57,) f32   — full step length per bin
+    aligned_up: torch.Tensor   # (57,) bool  — bin b may be raised to b+1
+    dt_drift: float            # f32-rounded drift (and thermal drift)
+    max_bin: int               # ceiling from dt_max
+    time_base_inv: float       # f32-rounded 1/time_base (bin_from_dt)
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    """The fields of the reference's EngineConfig that the main path
+    reads (the backend is always 'flat', the rebucket trigger-based)."""
+
+    dt_min: float = 1e-17
+    dt_max: float = 1e-2
+    with_self_gravity: bool = False
+    max_ghost_iterations: int = 30
+    rebucket_safety: float = 0.9  # fraction of the safe margin to use
+    p2p_reach: float = 0.0    # P2P gravity r_cut (coverage margin term)
+    eta_grav: float = 0.025   # Gravity:eta
+    eps_soft: float = 1e-3    # Gravity:eps (dt_grav = sqrt(2 eta eps/|a|))
+    mesh_dt_max: float = 0.0  # ceiling of the split PM-mesh interval
+    # (0 -> dt_max)
+
+
+class RegridNeeded(RuntimeError):
+    """A step hit a capacity/coverage wall (cell overflow or h outgrowing
+    the column edge).  The port does not re-grid: the caller rebuilds."""
+
+    def __init__(self, reason: str):
+        super().__init__(reason)
+        self.reason = reason
+
+
+def bin_from_dt(dt: torch.Tensor, time_base_inv: float) -> torch.Tensor:
+    """Largest bin with 2^(b+1)*time_base <= dt (timeline.h get_time_bin),
+    via frexp for an exact floor(log2) on f32."""
+    dti = torch.clamp_min(dt * time_base_inv, 2.0)
+    _, e = torch.frexp(dti)  # dti = m * 2^e, m in [0.5, 1)
+    return (e - 2).to(I32)
+
+
+def _tb_index(time_bin: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(time_bin, 0, NBINS).to(torch.int64)
+
+
+def _where_active(active, new, old):
+    act = active[..., None] if new.dim() == 3 else active
+    return torch.where(act, new, old)
+
+
+# ---------------------------------------------------------------------------
+# The step
+# ---------------------------------------------------------------------------
+
+def _ghost_density(grid: CellGrid, p: SPHENIXParams, cosmo: CosmoFactors,
+                   s: Dict, active: torch.Tensor, max_iter: int):
+    """Density loop + smoothing-length iteration (the ghost).
+
+    Re-runs only the 128-slot i-tiles holding unconverged particles (the
+    reference's unconverged-subset loops, runner_ghost.c:1085): exact,
+    because rho_i depends on h_i only, so skipped tiles keep valid values
+    and mixed tiles recompute in full.  Returns (h, dens, n_iter)."""
+    kroot_eps = float(np.float32(p.kernel.root) * np.float32(1.0 + 1e-5))
+
+    def density_pass(h, act=None):
+        dens = hydro_flat.density_loop(grid, {**s, "h": h}, p, active_i=act)
+        full = sphenix.end_density(p, {**s, "h": h, **dens}, cosmo)
+        return {k: full[k] for k in
+                ("rho", "rho_dh", "wcount", "wcount_dh", "div_v", "rot_v")}
+
+    def h_update(h, d, left, right):
+        has_ngb = d["wcount"] * (h * h * h) > kroot_eps
+        return sphenix.ghost_h_update(p, h, d["wcount"], d["wcount_dh"],
+                                      left, right, has_ngb)
+
+    h = s["h"]
+    left = torch.zeros_like(h)
+    right = torch.full_like(h, p.h_max)
+    # tiles with no ACTIVE particle skip even the first pass
+    d = density_pass(h, act=active)
+    _, _, _, conv = h_update(h, d, left, right)
+    conv = conv | ~active
+
+    C, W = h.shape
+    n_iter = 0
+    while n_iter < max_iter and not bool(conv.all()):
+        h_new, left, right, _ = h_update(h, d, left, right)
+        upd = active & ~conv
+        h = torch.where(upd, h_new, h)
+        d_new = density_pass(h, act=upd)
+        tflag = torch.any(upd.reshape(C, W // 128, 128), dim=2)
+        fp = tflag[:, :, None].expand(C, W // 128, 128).reshape(C, W)
+        d = {k: _where_active(fp, d_new[k], d[k]) for k in d}
+        _, _, _, c2 = h_update(h, d, left, right)
+        conv = conv | ~upd | (upd & c2)
+        n_iter += 1
+    return h, d, n_iter
+
+
+def _gas_loops(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
+               cosmo: CosmoFactors, s: Dict, active, dt_alpha_table,
+               fuse_spec: Optional[Dict] = None):
+    """density+ghost -> gradient -> force (fused with short-range gravity
+    when ``fuse_spec`` is given) on the active particles.  Returns
+    (state, n_ghost_iter)."""
+    tb = _tb_index(s["time_bin"])
+    h_new, dens, n_ghost_iter = _ghost_density(
+        grid, p, cosmo, s, active, cfg.max_ghost_iterations)
+    s = {**s, "h": torch.where(active, h_new, s["h"])}
+    for k, v in dens.items():
+        s[k] = _where_active(active, v, s[k])
+    s_fb = sphenix.no_neighbours_fallback(p, s)
+    for k in ("rho", "v_sig", "wcount", "rho_dh", "wcount_dh", "div_v",
+              "laplace_u", "rot_v"):
+        s[k] = _where_active(active, s_fb[k], s[k])
+
+    # --- prepare gradient + gradient loop ----------------------------------
+    rg = sphenix.reset_gradient(sphenix.prepare_gradient(p, s, cosmo))
+    for k in ("f_gradh", "pressure", "soundspeed", "balsara", "v_sig",
+              "alpha_visc_max_ngb"):
+        s[k] = torch.where(active, rg[k], s[k])
+    grad = hydro_flat.gradient_loop(grid, s, p, cosmo, active_i=active)
+    for k, v in grad.items():
+        s[k] = torch.where(active, v, s[k])
+    eg = sphenix.end_gradient(s)
+    s["laplace_u"] = torch.where(active, eg["laplace_u"], s["laplace_u"])
+
+    # --- prepare force (alpha evolution) + force loop -----------------------
+    pf = sphenix.prepare_force(p, s, cosmo, dt_alpha_table[tb])
+    for k in ("alpha_visc", "div_v_prev", "alpha_diff"):
+        s[k] = torch.where(active, pf[k], s[k])
+    ra = sphenix.reset_acceleration(s)
+    for k in ("a_hydro", "u_dt", "h_dt"):
+        s[k] = _where_active(active, ra[k], s[k])
+
+    if fuse_spec is not None:
+        force = hydro_flat.force_gravity_loop(grid, s, p, cosmo,
+                                              **fuse_spec, active_i=active)
+        s["a_grav"] = _where_active(active, force.pop("a_grav"),
+                                    s["a_grav"])
+        s["pot"] = torch.where(active, force.pop("pot"), s["pot"])
+    else:
+        force = hydro_flat.force_loop(grid, s, p, cosmo, active_i=active)
+    for k, v in force.items():
+        s[k] = _where_active(active, v, s[k])
+    ef = sphenix.end_force(p, s)
+    s["h_dt"] = torch.where(active, ef["h_dt"], s["h_dt"])
+    return s, n_ghost_iter
+
+
+def _rebucket_phase(grid: CellGrid, cfg: EngineConfig, s: Dict,
+                    T: StepTables, reach: torch.Tensor):
+    """Trigger-based counting-sort rebuild: after cumulative drift D a
+    true pair can only straddle >1 column when 2*D + reach >= min_edge, so
+    rebucket before that (SWIFT's rebuild triggers, engine.c:2392-2448).
+    Returns (state, n_overflow)."""
+    mask_b = s["mask"] > 0
+    vf = s["v_full"]
+    v_norm = torch.sqrt(vf[..., 0] * vf[..., 0] + vf[..., 1] * vf[..., 1]
+                        + vf[..., 2] * vf[..., 2])
+    step_disp = torch.amax(torch.where(mask_b, v_norm, 0.0)) \
+        * abs(T.dt_drift)
+    accum = s["drift_accum"] + step_disp
+    margin = _f32(0.5 * cfg.rebucket_safety) \
+        * (_f32(min(grid.edge)) - reach)
+    s = {**s, "drift_accum": accum}
+    if not bool(accum >= margin):
+        return s, torch.zeros((), dtype=I32, device=accum.device)
+    carried = {k: v for k, v in s.items()
+               if k not in ("mask", "off", "drift_accum")}
+    new_fields, new_mask, new_off, n_overflow = rebucket_offsets(
+        grid, s["mask"], s["off"], carried)
+    return ({"mask": new_mask, "off": new_off,
+             "drift_accum": torch.zeros_like(accum), **new_fields},
+            n_overflow)
+
+
+def _gas_kdk(p: SPHENIXParams, cfg: EngineConfig, cosmo: CosmoFactors,
+             s: Dict, T: StepTables, active, tb):
+    """kick2 -> timestep -> kick1 for the gas (kick.h kick_part,
+    runner_do_timestep).  Returns (state, too_small)."""
+    # --- kick2: second half of the step that just ended ----------------------
+    a_tot = s["a_hydro"] + s["a_grav"]
+    v_full = s["v_full"] + a_tot * T.dt_half[tb][..., None]
+    s = {**s, "v_full": _where_active(active, v_full, s["v_full"])}
+    ke = sphenix.kick_extra(p, s, cosmo, T.dt_half[tb])
+    for k in ("u_full", "u_dt"):
+        s[k] = torch.where(active, ke[k], s[k])
+
+    # reset predicted values at the kick point (runner_time_integration:463)
+    rp = sphenix.reset_predicted_values(p, s)
+    for k in ("v", "u", "pressure", "soundspeed", "v_sig"):
+        s[k] = _where_active(active, rp[k], s[k])
+
+    # --- timestep: pick the new bin (runner_do_timestep, timestep.h) --------
+    new_dt = torch.minimum(sphenix.compute_timestep(p, s, cosmo),
+                           sphenix.timestep_h_change_limit(p, s))
+    if cfg.with_self_gravity:
+        a = s["a_hydro"] + s["a_grav"] + s["a_grav_mesh"]
+        a_norm = torch.sqrt(a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1]
+                            + a[..., 2] * a[..., 2])
+        c = float(np.float32(2.0 * cfg.eta_grav) * np.float32(cfg.eps_soft))
+        new_dt = torch.minimum(
+            new_dt, torch.sqrt(c / torch.clamp_min(a_norm, 1e-30)))
+    new_dt = torch.clamp_max(new_dt, _f32(cfg.dt_max))
+
+    too_small = active & (new_dt < cfg.dt_min)
+    want_bin = torch.clamp_max(bin_from_dt(new_dt, T.time_base_inv),
+                               T.max_bin)
+    want_bin = torch.clamp(want_bin, 1, NBINS)
+    cur_bin = tb.to(I32)
+    up_ok = T.aligned_up[tb]
+    new_bin = torch.where(
+        (want_bin > cur_bin) & (cur_bin > 0),
+        torch.where(up_ok, torch.minimum(want_bin, cur_bin + 1), cur_bin),
+        want_bin)
+    s["time_bin"] = torch.where(active, new_bin, s["time_bin"])
+
+    # --- kick1: first half of the new step ----------------------------------
+    tb1 = _tb_index(s["time_bin"])
+    a_tot = s["a_hydro"] + s["a_grav"]
+    v_full = s["v_full"] + a_tot * T.dt_half[tb1][..., None]
+    s["v_full"] = _where_active(active, v_full, s["v_full"])
+    ke1 = sphenix.kick_extra(p, s, cosmo, T.dt_half[tb1])
+    for k in ("u_full", "u_dt"):
+        s[k] = torch.where(active, ke1[k], s[k])
+    return s, too_small
+
+
+def _bin_counts(mask_b, time_bin):
+    bins = torch.where(mask_b, torch.clamp(time_bin, 0, NBINS), NBINS + 5)
+    return torch.bincount(bins.reshape(-1).to(torch.int64),
+                          minlength=NBINS + 6)[:NBINS + 1]
+
+
+def hydro_step(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
+               gravity_fn: Optional[Callable], cosmo: CosmoFactors,
+               s: Dict, T: StepTables):
+    """One full engine step (drift -> loops -> KDK) for the gas.
+    Returns (new_state, diagnostics)."""
+    mask_b = s["mask"] > 0
+    active = mask_b & T.active[_tb_index(s["time_bin"])]
+
+    # --- drift all (drift.h:144 drift_part) --------------------------------
+    a_tot = s["a_hydro"] + s["a_grav"] + s["a_grav_mesh"]
+    s = {**s,
+         "off": s["off"] + s["v_full"] * T.dt_drift * s["mask"][..., None],
+         "v": s["v"] + a_tot * T.dt_drift}
+    s = sphenix.predict_extra(p, s, cosmo, T.dt_drift, T.dt_drift)
+
+    # --- rebucket (space_rebuild analog) ------------------------------------
+    reach = torch.clamp_min(
+        torch.amax(torch.where(mask_b, s["h"], 0.0))
+        * _f32(p.kernel.gamma), _f32(cfg.p2p_reach))
+    s, n_overflow = _rebucket_phase(grid, cfg, s, T, reach)
+    mask_b = s["mask"] > 0
+    tb = _tb_index(s["time_bin"])
+    active = mask_b & T.active[tb]
+
+    # --- density/ghost/gradient/force loops (active only); a gravity_fn
+    # that advertises its P2P literals runs INSIDE the force pass ----------
+    fuse_spec = getattr(gravity_fn, "fuse_spec", None)
+    s, n_ghost_iter = _gas_loops(grid, p, cfg, cosmo, s, active,
+                                 T.dt_alpha, fuse_spec=fuse_spec)
+    if gravity_fn is not None and fuse_spec is None:
+        a_grav, pot = gravity_fn(s)
+        s["a_grav"] = _where_active(active, a_grav, s["a_grav"])
+        s["pot"] = torch.where(active, pot, s["pot"])
+
+    s, too_small = _gas_kdk(p, cfg, cosmo, s, T, active, tb)
+
+    diag = {
+        "bin_counts": _bin_counts(mask_b, s["time_bin"]),
+        "n_overflow": n_overflow,
+        "n_dt_too_small": torch.sum(too_small),
+        "n_ghost_iter": n_ghost_iter,
+        "h_max_active": torch.amax(torch.where(active, s["h"], 0.0)),
+    }
+    return s, diag
+
+
+def multi_step(grid, p, cfg, gravity_fn, k, cosmo, s, T):
+    """k engine steps at the fixed global timestep.
+
+    Valid only while every particle stays in the same (maximal) bin; a
+    device-side flag records any bin deviation or overflow so the host can
+    reject the run without a read per step."""
+    bad = torch.zeros((), dtype=torch.bool, device=s["mask"].device)
+    for _ in range(k):
+        s, diag = hydro_step(grid, p, cfg, gravity_fn, cosmo, s, T)
+        bins = torch.where(s["mask"] > 0, s["time_bin"], T.max_bin)
+        bad = (bad | torch.any(bins != T.max_bin)
+               | (diag["n_overflow"] > 0))
+    return s, {"bin_deviation": bad}
+
+
+def _init_pass(grid, p, cfg, gravity_fn, cosmo, s, T):
+    """engine_init_particles: density/ghost + force + first bins + kick1."""
+    mask_b = s["mask"] > 0
+    active = mask_b  # everyone is active at t=0
+
+    h_new, dens, n_iter = _ghost_density(grid, p, cosmo, s, active,
+                                         cfg.max_ghost_iterations)
+    s = {**s, "h": torch.where(active, h_new, s["h"])}
+    for k, v in dens.items():
+        s[k] = _where_active(active, v, s[k])
+    s = sphenix.no_neighbours_fallback(p, s)
+    s = sphenix.reset_gradient(sphenix.prepare_gradient(p, s, cosmo))
+    s = {**s, **hydro_flat.gradient_loop(grid, s, p, cosmo)}
+    s = sphenix.end_gradient(s)
+    s = sphenix.reset_acceleration(sphenix.prepare_force(p, s, cosmo, 0.0))
+    s = {**s, **hydro_flat.force_loop(grid, s, p, cosmo)}
+    s = sphenix.end_force(p, s)
+
+    if gravity_fn is not None:
+        a_grav, pot = gravity_fn(s)
+        s = {**s, "a_grav": a_grav, "pot": pot}
+
+    # initial timestep + bins
+    new_dt = torch.clamp_max(
+        torch.minimum(sphenix.compute_timestep(p, s, cosmo),
+                      sphenix.timestep_h_change_limit(p, s)),
+        _f32(cfg.dt_max))
+    too_small = active & (new_dt < cfg.dt_min)
+    new_bin = torch.clamp(bin_from_dt(new_dt, T.time_base_inv), 1, NBINS)
+    new_bin = torch.clamp_max(new_bin, T.max_bin)
+    s["time_bin"] = torch.where(active, new_bin, 0)
+
+    # first half-kick
+    dt_k1 = T.dt_half[_tb_index(s["time_bin"])]
+    a_tot = s["a_hydro"] + s["a_grav"]
+    s["v_full"] = s["v_full"] + a_tot * dt_k1[..., None] \
+        * s["mask"][..., None]
+    ke = sphenix.kick_extra(p, s, cosmo, dt_k1 * s["mask"])
+    s = {**s, "u_full": ke["u_full"], "u_dt": ke["u_dt"]}
+
+    diag = {
+        "bin_counts": _bin_counts(mask_b, s["time_bin"]),
+        "n_overflow": torch.zeros((), dtype=I32, device=mask_b.device),
+        "n_dt_too_small": torch.sum(too_small),
+        "n_ghost_iter": n_iter,
+        "h_max_active": torch.amax(torch.where(active, s["h"], 0.0)),
+    }
+    return s, diag
+
+
+def _mesh_update(mesh_fn, s, dt_close: float, dt_open: float):
+    """Separate PM-mesh kick at a mesh-step boundary (kick.h:255): close
+    the old mesh half-kick with the OLD field, recompute the field, open
+    the next half-kick with the NEW one.  Returns (state, max |a_mesh|)."""
+    mb = s["mask"][..., None]
+    v = s["v_full"] + s["a_grav_mesh"] * (dt_close * mb)
+    acc_new, pot_new = mesh_fn({**s, "v_full": v})
+    v = v + acc_new * (dt_open * mb)
+    amax = torch.amax(torch.sqrt(torch.sum(acc_new * acc_new, -1)))
+    return {**s, "v_full": v, "a_grav_mesh": acc_new * mb,
+            "pot_mesh": pot_new * s["mask"]}, amax
+
+
+def _mesh_open(s, dt: float):
+    mb = s["mask"][..., None]
+    return {**s, "v_full": s["v_full"] + s["a_grav_mesh"] * (dt * mb)}
+
+
+# ---------------------------------------------------------------------------
+# Host-side driver
+# ---------------------------------------------------------------------------
+
+class Engine:
+    """Host orchestrator: owns the timeline, builds per-step tables, runs
+    the step on ``device``, reads end-of-step diagnostics."""
+
+    def __init__(self, grid: CellGrid, sph: SPHENIXParams,
+                 cfg: EngineConfig, time_begin: float, time_end: float,
+                 *, device, gravity_fn: Optional[Callable] = None,
+                 mesh_fn: Optional[Callable] = None,
+                 mesh_dt_scale: float = 0.0):
+        self.device = torch.device(device)
+        self.grid = grid
+        self.sph = sph
+        self.cfg = cfg
+        self.timeline = tl.Timeline(time_begin, time_end)
+        self.cosmo = NO_COSMO
+        # split PM mesh: gravity_fn is the short-range part only; the mesh
+        # field lives on its own longer timestep (engine.c:2406 ti_mesh)
+        self.gravity_fn = gravity_fn
+        self.mesh_fn = mesh_fn
+        self.mesh_dt_scale = float(mesh_dt_scale)
+        self.ti_mesh_end = None
+        self.ti_mesh_mid = None
+        self.n_mesh_updates = 0
+        self.state: Dict[str, torch.Tensor] = {}
+        self.step_count = 0
+        self._ti_end_min = 0
+
+    # --- setup ------------------------------------------------------------
+    def load_particles(self, pos, m, v, u, h, pid=None):
+        """Bucket raw particle arrays into the z-sorted tiled state."""
+        n = len(pos)
+        if pid is None:
+            pid = np.arange(n, dtype=np.int32)
+        fields = {
+            "pid": np.asarray(pid, np.int32),
+            "m": np.asarray(m, np.float32),
+            "v": np.asarray(v, np.float32),
+            "v_full": np.asarray(v, np.float32),
+            "h": np.asarray(h, np.float32),
+            "u": np.asarray(u, np.float32),
+            "u_full": np.asarray(u, np.float32),
+        }
+        out, mask, off, n_over = bucket_fields(
+            self.grid, np.asarray(pos), fields, device=self.device)
+        if int(n_over) != 0:
+            raise RuntimeError(
+                f"{int(n_over)} particles overflowed cell capacity "
+                f"K={self.grid.K}; rebuild the grid with more headroom")
+        C, K = self.grid.C, self.grid.K
+        dev = self.device
+
+        def z():
+            return torch.zeros((C, K), dtype=F32, device=dev)
+
+        def z3():
+            return torch.zeros((C, K, 3), dtype=F32, device=dev)
+
+        self.state = {
+            "mask": mask, "off": off, **out,
+            "u_dt": z(), "rho": z(), "wcount": z(), "wcount_dh": z(),
+            "rho_dh": z(), "div_v": z(), "rot_v": z3(),
+            "alpha_visc": torch.full((C, K), self.sph.viscosity_alpha,
+                                     dtype=F32, device=dev) * mask,
+            "v_sig": z(), "div_v_prev": z(),
+            "alpha_diff": torch.full((C, K), self.sph.diffusion_alpha,
+                                     dtype=F32, device=dev) * mask,
+            "laplace_u": z(), "f_gradh": z(), "pressure": z(),
+            "soundspeed": z(), "balsara": z(),
+            "alpha_visc_max_ngb": z(), "a_hydro": z3(), "h_dt": z(),
+            "a_grav": z3(), "a_grav_mesh": z3(), "pot": z(),
+            "pot_mesh": z(),
+            "time_bin": torch.zeros((C, K), dtype=I32, device=dev),
+            "min_ngb_time_bin": torch.full((C, K), NBINS, dtype=I32,
+                                           device=dev),
+            "drift_accum": torch.zeros((), dtype=F32, device=dev),
+        }
+
+    # --- split PM-mesh timestep (kick.h:255, engine.c:2406) ----------------
+    def _kick_fac(self, lo: int, hi: int) -> float:
+        return (hi - lo) * self.timeline.time_base
+
+    def _pick_mesh_dti(self, amax: float) -> int:
+        """Largest aligned power-of-2 interval under the mesh timestep
+        dt = sqrt(2 eta r_s / |a_mesh|max) (get_mesh_timestep analog)."""
+        t = self.timeline
+        ti = t.ti_current
+        L = self.mesh_dt_scale if self.mesh_dt_scale > 0 else 1e-3
+        dt = float(np.sqrt(2.0 * self.cfg.eta_grav * L / max(amax, 1e-30)))
+        dt = min(dt, self.cfg.mesh_dt_max or self.cfg.dt_max)
+        b = 1
+        while b < NBINS:
+            dti_n = tl.get_integer_timestep(b + 1)
+            if ti % dti_n or dti_n * t.time_base > dt:
+                break
+            b += 1
+        return tl.get_integer_timestep(b)
+
+    def _mesh_boundary(self):
+        """Close the old mesh half-kick, recompute the PM field, size the
+        next mesh step and open its first half-kick."""
+        ti = self.timeline.ti_current
+        dt_close = (0.0 if self.ti_mesh_mid is None
+                    else self._kick_fac(self.ti_mesh_mid, ti))
+        self.state, amax = _mesh_update(self.mesh_fn, self.state,
+                                        _f32(dt_close), 0.0)
+        dti = self._pick_mesh_dti(float(amax))
+        self.ti_mesh_end = min(ti + dti, tl.MAX_NR_TIMESTEPS)
+        self.ti_mesh_mid = min(ti + dti // 2, tl.MAX_NR_TIMESTEPS)
+        dt_open = self._kick_fac(ti, self.ti_mesh_mid)
+        self.state = _mesh_open(self.state, _f32(dt_open))
+        self.n_mesh_updates += 1
+
+    def init_particles(self):
+        """First density/ghost/force pass + initial bins + first kick1
+        (engine_init_particles, engine.c:1893)."""
+        if self.mesh_fn is not None:
+            self._mesh_boundary()
+        T = self._tables()
+        self.state, diag = _init_pass(self.grid, self.sph, self.cfg,
+                                      self.gravity_fn, self.cosmo,
+                                      self.state, T)
+        self._post_step(diag)
+        return diag
+
+    # --- stepping ---------------------------------------------------------
+    def _tables(self, dt_drift: float = 0.0) -> StepTables:
+        t = self.timeline
+        ti = t.ti_current
+        dt_half = np.zeros(NBINS + 1, np.float32)
+        dt_full = np.zeros(NBINS + 1, np.float32)
+        aligned_up = np.zeros(NBINS + 1, bool)
+        for b in range(1, NBINS + 1):
+            dti = tl.get_integer_timestep(b)
+            dt_half[b] = 0.5 * dti * t.time_base
+            dt_full[b] = dti * t.time_base
+            up = tl.get_integer_timestep(min(b + 1, NBINS))
+            aligned_up[b] = (ti % up) == 0
+        max_bin = 1
+        while (max_bin < NBINS and tl.get_integer_timestep(max_bin + 1)
+               * t.time_base <= self.cfg.dt_max):
+            max_bin += 1
+        dev = self.device
+        return StepTables(
+            active=torch.as_tensor(t.active_bins_mask(), device=dev),
+            dt_half=torch.as_tensor(dt_half, device=dev),
+            dt_alpha=torch.as_tensor(dt_full, device=dev),
+            aligned_up=torch.as_tensor(aligned_up, device=dev),
+            dt_drift=_f32(dt_drift), max_bin=max_bin,
+            time_base_inv=_f32(t.time_base_inv))
+
+    def step(self):
+        """Advance to the next ti_end_min (engine_step, engine.c:2245)."""
+        t = self.timeline
+        ti_next = self._ti_end_min
+        if self.mesh_fn is not None:
+            if self.ti_mesh_end is None:
+                self._mesh_boundary()
+            ti_next = min(ti_next, self.ti_mesh_end)
+        dt_drift = (ti_next - t.ti_current) * t.time_base
+        t.ti_current = ti_next
+        T = self._tables(dt_drift=dt_drift)
+        self.state, diag = hydro_step(self.grid, self.sph, self.cfg,
+                                      self.gravity_fn, self.cosmo,
+                                      self.state, T)
+        self._post_step(diag)
+        self.step_count += 1
+        if self.mesh_fn is not None and t.ti_current >= self.ti_mesh_end:
+            self._mesh_boundary()
+        return diag
+
+    def _post_step(self, diag):
+        counts = diag["bin_counts"].cpu().numpy()
+        self._ti_end_min = self.timeline.ti_end_min_from_bins(counts)
+        if int(diag["n_overflow"]) != 0:
+            raise RegridNeeded(
+                f"cell overflow during rebucket at step {self.step_count}: "
+                f"{int(diag['n_overflow'])} particles (grid too tight)")
+        if int(diag["n_dt_too_small"]) != 0:
+            raise RuntimeError(
+                f"{int(diag['n_dt_too_small'])} particles want dt < dt_min")
+        # h grew beyond the columns' coverage -> would silently lose pairs
+        h_reach = float(diag["h_max_active"]) * self.sph.kernel.gamma
+        if h_reach > min(self.grid.edge) * (1 + 1e-5):
+            raise RegridNeeded(
+                f"smoothing length reach {h_reach:.4g} exceeds cell edge "
+                f"{min(self.grid.edge):.4g}")
+
+    def run_fixed_dt(self, n_steps: int, per_launch: int = 8):
+        """Advance n_steps with the global fixed timestep (= dt_max) in
+        batches of per_launch steps, reading the bin-deviation flags once
+        at the end.  With a split PM mesh, batches stop at mesh-step
+        boundaries, where the mesh field is recomputed."""
+        t = self.timeline
+        b = self._tables().max_bin          # everyone must be in max_bin
+        dti = tl.get_integer_timestep(b)
+        T = self._tables(dt_drift=dti * t.time_base)
+        if self.mesh_fn is not None and self.ti_mesh_end is None:
+            self._mesh_boundary()
+        done = 0
+        deviations = []
+        while done < n_steps:
+            k = min(per_launch, n_steps - done)
+            if self.mesh_fn is not None:
+                k = min(k, max(1, (self.ti_mesh_end - t.ti_current) // dti))
+            self.state, diag = multi_step(self.grid, self.sph, self.cfg,
+                                          self.gravity_fn, k, self.cosmo,
+                                          self.state, T)
+            deviations.append(diag["bin_deviation"])
+            t.ti_current += k * dti
+            self.step_count += k
+            done += k
+            if (self.mesh_fn is not None
+                    and t.ti_current >= self.ti_mesh_end):
+                self._mesh_boundary()
+        if bool(torch.stack(deviations).any()):
+            raise RuntimeError(
+                "fixed-dt run invalid: a particle left the maximal bin "
+                "(CFL below dt_max) or a cell overflowed")
+        counts = np.zeros(NBINS + 1, int)
+        counts[b] = 1
+        self._ti_end_min = self.timeline.ti_end_min_from_bins(counts)

@@ -1,0 +1,23 @@
+"""State carried across from the reference engine.
+
+The system has no weights; what crosses between the two packages is the
+tiled particle state.  ``state_from_reference`` takes a reference
+``Engine.state`` converted with ``np.asarray`` and returns the port's state
+with the same keys, shapes and dtypes (``drift_accum`` as a 0-dim tensor).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def state_from_reference(state: Dict[str, np.ndarray],
+                         device) -> Dict[str, torch.Tensor]:
+    out = {k: torch.tensor(np.asarray(v), device=device)
+           for k, v in state.items()}
+    if "drift_accum" in out:
+        out["drift_accum"] = out["drift_accum"].reshape(()).to(torch.float32)
+    return out

@@ -1,0 +1,322 @@
+"""SPHENIX hydro and P2P gravity loops on the flat pair engine.
+
+Port of the flat-backend loops of the reference's ``ops/hydro_pallas.py``
+(density, gradient, force, fused force + short-range gravity, and P2P
+gravity).  Each loop builds a :class:`~.pair_flat.PairPass` — the (Ncol, W)
+field tiles in the body's field order, the body's constants and its plain
+torch callback — and runs it through ``pair_flat.pair_apply`` (the CUDA
+kernel on the card, the plain version on the CPU).
+
+Conventions kept from the reference: padded slots hold division-safe
+fills (``_san``: h, m, rho, P = 1); the gravity mass is ``m * mask``; the
+minimum neighbour bin is reduced as the max of the negated bin, with
+``NBIN_SENTINEL`` for empty bins; max outputs are -inf where a slot
+accepted no pair.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..grid.cellgrid import CellGrid
+from ..models.sph import sphenix
+from ..models.sph.kernels import CUBIC_SPLINE
+from ..models.sph.sphenix import CosmoFactors, SPHENIXParams
+from . import p2p_gravity as pg
+from .pair_flat import PairBody, PairPass, pair_apply
+
+F32 = torch.float32
+# empty-bin sentinel of the min-neighbour-bin reduction (reference
+# ops/stencil.py NBIN_SENTINEL)
+NBIN_SENTINEL = 64
+
+_COMMON = ("mask", "off0", "off1", "off2")
+DENSITY_FIELDS = _COMMON + ("v0", "v1", "v2", "h", "hinv", "m")
+GRADIENT_FIELDS = _COMMON + ("v0", "v1", "v2", "h", "hinv", "m", "u",
+                             "rhoinv", "cs", "av")
+FORCE_FIELDS = _COMMON + ("v0", "v1", "v2", "h", "m", "u", "rho", "P", "cs",
+                          "fgh", "bal", "al", "ad", "tb", "hinv", "minv",
+                          "rhoinv", "pr2")
+FORCE_GRAVITY_FIELDS = FORCE_FIELDS + ("gm",)
+P2P_FIELDS = _COMMON + ("h", "m")
+
+
+def _vec(fields: Dict, s: Dict, name: str):
+    for k in range(3):
+        fields[f"{name}{k}"] = s[name][..., k]
+
+
+def _common_fields(s: Dict) -> Dict[str, torch.Tensor]:
+    f = {"mask": s["mask"]}
+    _vec(f, s, "off")
+    return f
+
+
+def _san(s, key, fill=1.0):
+    return torch.where(s["mask"] > 0, s[key], fill)
+
+
+def _kernel_params(p: SPHENIXParams):
+    """(gamma2, gamma_inv, g3, g4): the cubic-spline constants the CUDA
+    bodies take (the kernel form itself is compiled in)."""
+    if p.kernel != CUBIC_SPLINE:
+        raise ValueError(f"flat CUDA bodies implement the cubic spline "
+                         f"only, not {p.kernel.name}")
+    k = p.kernel
+    return (float(k.gamma2), k.gamma_inv, k.g3, k.g4)
+
+
+def _cosmo_params(cosmo: CosmoFactors):
+    """(a^2 H, fac_mu) as the pair terms fold them."""
+    return (cosmo.a * cosmo.a * cosmo.H, cosmo.fac_mu)
+
+
+def _grav_params(G, H_soft, r_s, r_cut):
+    """(r_cut2, H_inv, H3_inv, r_s_inv, G).  The P2P pairs always carry
+    the erfc truncation that matches the PM mesh, so r_s must be > 0."""
+    if not r_s > 0:
+        raise ValueError(f"P2P gravity needs the mesh split scale r_s > 0 "
+                         f"(got {r_s})")
+    H_inv = 1.0 / float(H_soft)
+    return (float(r_cut) ** 2, H_inv, H_inv * H_inv * H_inv,
+            1.0 / float(r_s), float(G))
+
+
+def _force_fields(s: Dict) -> Dict[str, torch.Tensor]:
+    fields = _common_fields(s)
+    _vec(fields, s, "v")
+    fields["h"] = _san(s, "h")
+    fields["m"] = _san(s, "m")
+    fields["u"] = _san(s, "u", 0.0)
+    fields["rho"] = torch.clamp_min(_san(s, "rho"), 1e-30)
+    fields["P"] = _san(s, "pressure")
+    fields["cs"] = _san(s, "soundspeed", 0.0)
+    fields["fgh"] = _san(s, "f_gradh", 0.0)
+    fields["bal"] = _san(s, "balsara", 0.0)
+    fields["al"] = _san(s, "alpha_visc", 0.0)
+    fields["ad"] = _san(s, "alpha_diff", 0.0)
+    fields["tb"] = s["time_bin"].to(F32)
+    fields["hinv"] = 1.0 / fields["h"]
+    fields["minv"] = 1.0 / fields["m"]
+    fields["rhoinv"] = 1.0 / fields["rho"]
+    fields["pr2"] = fields["P"] * fields["rhoinv"] * fields["rhoinv"]
+    return fields
+
+
+def _force_terms(p, cosmo, sf, nf, dx, r2):
+    dv = tuple(sf(f"v{k}") - nf(f"v{k}") for k in range(3))
+    return sphenix.force_terms(
+        p, dx, r2, sf("hinv"), nf("hinv"), sf("m"), nf("m"),
+        sf("minv"), nf("minv"), dv,
+        sf("rho"), nf("rho"), sf("rhoinv"), nf("rhoinv"),
+        sf("pr2"), nf("pr2"),
+        sf("P"), nf("P"), sf("cs"), nf("cs"),
+        sf("fgh"), nf("fgh"), sf("bal"), nf("bal"),
+        sf("al"), nf("al"), sf("ad"), nf("ad"), sf("u"), nf("u"), cosmo)
+
+
+def _hydro_ok(gamma2, sf, nf, r2):
+    hm = torch.maximum(sf("h"), nf("h"))
+    return r2 < gamma2 * (hm * hm)
+
+
+# ---------------------------------------------------------------------------
+# Passes: field tiles + body for each loop
+# ---------------------------------------------------------------------------
+
+def density_pass(s: Dict, p: SPHENIXParams) -> PairPass:
+    fields = _common_fields(s)
+    _vec(fields, s, "v")
+    fields["h"] = _san(s, "h")
+    fields["hinv"] = 1.0 / fields["h"]
+    fields["m"] = s["m"]
+    gamma2 = float(p.kernel.gamma2)
+
+    def fn(sf, nf, dx, r2):
+        h_i = sf("h")
+        ok = r2 < gamma2 * h_i * h_i
+        dv = tuple(sf(f"v{k}") - nf(f"v{k}") for k in range(3))
+        t = sphenix.density_terms(p, dx, r2, sf("hinv"), nf("m"), dv)
+        return ok, [t["rho"], t["rho_dh"], t["wcount"], t["wcount_dh"],
+                    t["div_v"], t["rot_v0"], t["rot_v1"], t["rot_v2"]], []
+
+    body = PairBody("density", DENSITY_FIELDS, 8, 0, _kernel_params(p), fn)
+    return PairPass(body, fields, range_scale=float(p.kernel.gamma))
+
+
+def gradient_pass(s: Dict, p: SPHENIXParams,
+                  cosmo: CosmoFactors) -> PairPass:
+    fields = _common_fields(s)
+    _vec(fields, s, "v")
+    fields["h"] = _san(s, "h")
+    fields["hinv"] = 1.0 / fields["h"]
+    fields["m"] = s["m"]
+    fields["u"] = s["u"]
+    fields["rhoinv"] = 1.0 / torch.clamp_min(_san(s, "rho"), 1e-30)
+    fields["cs"] = _san(s, "soundspeed", 0.0)
+    fields["av"] = _san(s, "alpha_visc", 0.0)
+    gamma2 = float(p.kernel.gamma2)
+
+    def fn(sf, nf, dx, r2):
+        h_i = sf("h")
+        ok = r2 < gamma2 * h_i * h_i
+        dv = tuple(sf(f"v{k}") - nf(f"v{k}") for k in range(3))
+        t = sphenix.gradient_terms(
+            p, dx, r2, sf("hinv"), nf("m"), dv, sf("u"), nf("u"),
+            nf("rhoinv"), sf("cs"), nf("cs"), nf("av"), cosmo)
+        return ok, [t["sum"]["laplace_u"]], \
+            [t["max"]["v_sig"], t["max"]["alpha_visc_max_ngb"]]
+
+    body = PairBody("gradient", GRADIENT_FIELDS, 1, 2,
+                    _kernel_params(p) + _cosmo_params(cosmo), fn)
+    return PairPass(body, fields, range_scale=float(p.kernel.gamma))
+
+
+def force_pass(s: Dict, p: SPHENIXParams, cosmo: CosmoFactors) -> PairPass:
+    fields = _force_fields(s)
+    gamma2 = float(p.kernel.gamma2)
+    big_bin = float(NBIN_SENTINEL)
+
+    def fn(sf, nf, dx, r2):
+        ok = _hydro_ok(gamma2, sf, nf, r2)
+        t = _force_terms(p, cosmo, sf, nf, dx, r2)
+        sums = [t["sum"]["a_hydro0"], t["sum"]["a_hydro1"],
+                t["sum"]["a_hydro2"], t["sum"]["u_dt"], t["sum"]["h_dt"]]
+        # min neighbour bin as a max of the negated bin; empty bins
+        # excluded (timestep_limiter_iact.h:40)
+        neg_tb = torch.where(nf("tb") > 0, -nf("tb"), -big_bin)
+        return ok, sums, [t["max"]["v_sig"], neg_tb]
+
+    body = PairBody("force", FORCE_FIELDS, 5, 2,
+                    _kernel_params(p) + _cosmo_params(cosmo), fn)
+    return PairPass(body, fields, range_scale=float(p.kernel.gamma),
+                    sym_range=True)
+
+
+def force_gravity_pass(s: Dict, p: SPHENIXParams, cosmo: CosmoFactors,
+                       G: float, H_soft: float, r_s: float,
+                       r_cut: float) -> PairPass:
+    """Fused hydro force + short-range P2P gravity: hydro sums are masked
+    by r2 < gamma^2 max(h_i,h_j)^2, gravity sums by r2 < r_cut^2, and the
+    pair mask is their union; the window covers max(gamma h, r_cut)."""
+    fields = _force_fields(s)
+    # gravity mass: zero in empty slots (the hydro "m" is pad-filled to 1)
+    fields["gm"] = s["m"] * s["mask"]
+    gamma2 = float(p.kernel.gamma2)
+    big_bin = float(NBIN_SENTINEL)
+    gparams = _grav_params(G, H_soft, r_s, r_cut)
+    r_cut2, H_inv, _, r_s_inv, Gf = gparams
+
+    def fn(sf, nf, dx, r2):
+        ok_h = _hydro_ok(gamma2, sf, nf, r2)
+        t = _force_terms(p, cosmo, sf, nf, dx, r2)
+        wh = ok_h.to(F32)
+        ok_g = r2 < r_cut2
+        F, P = pg.force_pot_factors(r2, H_inv, r_s_inv, True)
+        gm = (Gf * ok_g.to(F32)) * nf("gm")
+        gmF = gm * F
+        sums = [t["sum"]["a_hydro0"] * wh, t["sum"]["a_hydro1"] * wh,
+                t["sum"]["a_hydro2"] * wh, t["sum"]["u_dt"] * wh,
+                t["sum"]["h_dt"] * wh,
+                -gmF * dx[0], -gmF * dx[1], -gmF * dx[2], -gm * P]
+        neg_tb = torch.where(ok_h & (nf("tb") > 0), -nf("tb"), -big_bin)
+        v_sig = torch.where(ok_h, t["max"]["v_sig"], float("-inf"))
+        return ok_h | ok_g, sums, [v_sig, neg_tb]
+
+    body = PairBody("force_gravity", FORCE_GRAVITY_FIELDS, 9, 2,
+                    _kernel_params(p) + _cosmo_params(cosmo) + gparams, fn)
+    return PairPass(body, fields, range_scale=float(p.kernel.gamma),
+                    sym_range=True, reach_floor=float(r_cut))
+
+
+def p2p_gravity_pass(s: Dict, G: float, H_soft: float, r_s: float,
+                     r_cut: float) -> PairPass:
+    fields = _common_fields(s)
+    fields["h"] = torch.full_like(s["mask"], float(r_cut))
+    fields["m"] = s["m"]
+    gparams = _grav_params(G, H_soft, r_s, r_cut)
+    r_cut2, H_inv, _, r_s_inv, Gf = gparams
+
+    def fn(sf, nf, dx, r2):
+        ok = r2 < r_cut2
+        F, P = pg.force_pot_factors(r2, H_inv, r_s_inv, True)
+        gm = Gf * nf("m")
+        gmF = gm * F
+        return ok, [-gmF * dx[0], -gmF * dx[1], -gmF * dx[2], -gm * P], []
+
+    body = PairBody("p2p_gravity", P2P_FIELDS, 4, 0, gparams, fn)
+    return PairPass(body, fields, range_scale=1.0)
+
+
+# ---------------------------------------------------------------------------
+# Loops (the reference's hydro_pallas contracts, flat engine)
+# ---------------------------------------------------------------------------
+
+def density_loop(grid: CellGrid, s: Dict, p: SPHENIXParams,
+                 active_i: torch.Tensor = None) -> Dict[str, torch.Tensor]:
+    sums, _ = pair_apply(grid, density_pass(s, p), active_i)
+    m = s["mask"]
+    return {
+        "rho": sums[0] * m, "rho_dh": sums[1] * m, "wcount": sums[2] * m,
+        "wcount_dh": sums[3] * m, "div_v": sums[4] * m,
+        "rot_v": torch.stack([sums[5] * m, sums[6] * m, sums[7] * m], -1),
+    }
+
+
+def gradient_loop(grid: CellGrid, s: Dict, p: SPHENIXParams,
+                  cosmo: CosmoFactors,
+                  active_i: torch.Tensor = None) -> Dict[str, torch.Tensor]:
+    sums, maxes = pair_apply(grid, gradient_pass(s, p, cosmo), active_i)
+    m = s["mask"]
+    return {"laplace_u": sums[0] * m,
+            "v_sig": torch.maximum(s["v_sig"], maxes[0]),
+            "alpha_visc_max_ngb": torch.maximum(s["alpha_visc_max_ngb"],
+                                                maxes[1])}
+
+
+def _force_out(s, sums, maxes):
+    m = s["mask"]
+    min_tb = torch.clamp_max(-maxes[1], float(NBIN_SENTINEL))
+    return {
+        "a_hydro": torch.stack([sums[0] * m, sums[1] * m, sums[2] * m], -1),
+        "u_dt": sums[3] * m,
+        "h_dt": sums[4] * m,
+        "v_sig": torch.maximum(s["v_sig"], maxes[0]),
+        "min_ngb_time_bin": min_tb.to(torch.int32),
+    }
+
+
+def force_loop(grid: CellGrid, s: Dict, p: SPHENIXParams,
+               cosmo: CosmoFactors,
+               active_i: torch.Tensor = None) -> Dict[str, torch.Tensor]:
+    sums, maxes = pair_apply(grid, force_pass(s, p, cosmo), active_i)
+    return _force_out(s, sums, maxes)
+
+
+def force_gravity_loop(grid: CellGrid, s: Dict, p: SPHENIXParams,
+                       cosmo: CosmoFactors, G: float, H_soft: float,
+                       r_s: float, r_cut: float,
+                       active_i: torch.Tensor = None) -> Dict:
+    """force_loop's dict plus "a_grav" (C,W,3) and "pot" (C,W), from one
+    fused traversal."""
+    pp = force_gravity_pass(s, p, cosmo, G, H_soft, r_s, r_cut)
+    sums, maxes = pair_apply(grid, pp, active_i)
+    out = _force_out(s, sums, maxes)
+    m = s["mask"]
+    out["a_grav"] = torch.stack([sums[5] * m, sums[6] * m, sums[7] * m], -1)
+    out["pot"] = sums[8] * m
+    return out
+
+
+def p2p_gravity_loop(grid: CellGrid, s: Dict, G: float, H_soft: float,
+                     r_s: float, r_cut: float):
+    """Short-range P2P self-gravity of one species on the flat layout:
+    pairs beyond r_cut are left to the PM mesh.  Returns (acc (C,W,3),
+    pot (C,W))."""
+    pp = p2p_gravity_pass(s, G, H_soft, r_s, r_cut)
+    sums, _ = pair_apply(grid, pp)
+    m = s["mask"]
+    return (torch.stack([sums[0] * m, sums[1] * m, sums[2] * m], -1),
+            sums[3] * m)
