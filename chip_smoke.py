@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,24 +7,48 @@ Phases (any failure ends the script with a non-zero exit and no result):
 
 1. Card: require a CUDA device; print its name and power limit
    (nvidia-smi) and the torch/CUDA versions.
-2. Build: compile the flat pair kernel (csrc/pair_flat.cu) with nvcc into
-   build/ and load it.
+2. Build: compile the flat pair kernel (csrc/pair_flat.cu) and the packed
+   27-cell pair kernel (csrc/pair_packed.cu) with nvcc into build/, one
+   nvcc process each, started together, and load both.
 3. Kernel vs plain: on the bench IC at n1=24 (27,648 particles), mesh_N=64,
-   after init_particles(), run each of the five pair bodies through the
-   CUDA kernel and through its plain torch version on the same tensors:
-   sums within 1e-5 of max |plain|, maxes equal to 1e-6 relative.  Both
-   are timed with CUDA events.
+   after init_particles(), run each of the five flat pair bodies through
+   the CUDA kernel and through its plain torch version on the same
+   tensors: sums within 1e-5 of max |plain|, maxes equal to 1e-6
+   relative.  Both are timed with CUDA events.
 4. Main path at full size: bench.py's default geometry (2*80^3 =
    1,024,000 particles, mesh_N=192): init_particles() + run_fixed_dt(8)
    with every kernel launch counter reset just before.  Checks: finite
    state, converged init ghost, every body launched, the density of a
    sample of particles against a float64 brute-force SPH sum (at the
    engine's h), and the mean neighbour count against the ghost's target
-   (which a wrong h would miss).  Then each
-   body's kernel against its plain version once more, on the final state
-   at the main path's shapes, with the tolerances of phase 3.
-5. Prints {"kernels": [...]} (the full-size launches, errors and times)
-   and, as the last line, the result object.
+   (which a wrong h would miss).  Then each body's kernel against its
+   plain version once more, on the final state at the main path's
+   shapes, with the tolerances of phase 3.
+5. Sedov blast, path A (the example's configuration: 27-cell grid,
+   backend "pallas", the packed kernel K2, no timestep limiter): the
+   port's example at n = 51 (2*51^3 = 265,302 particles, dt_max = 1e-3),
+   init_particles() + run(SEDOV_T_END) with the launch counters reset
+   just before.  Checks: finite state, the example's shock radius rule
+   (within 10% of Sedov's), >= 3 time bins populated at some step, every
+   re-grid made through the step's retry or its occupancy trigger, every
+   K2 body launched; each K2 body's kernel against its plain version on
+   the final state (tolerances of phase 3).  Without the limiter the
+   blast loses ~50% of its energy in its first steps at this resolution,
+   on either backend, so the example's energy rule (drift below 5%) is
+   held on path B, and path A's drift and shock radius are held within
+   1% of the same run on the flat backend without the limiter.
+6. Sedov blast, path B (the CLI's --hydro --limiter configuration: column
+   grid, backend "flat" with the timestep limiter, as SWIFT runs
+   SedovBlast_3D): the same IC and run, the same checks plus the
+   example's energy rule, wakes (sum of n_woken > 0) and the timebin
+   body launched; then the flat bodies the path runs against their plain
+   versions on its final state, the timebin body bit for bit (on the
+   particles active one smallest step before the end).
+7. Prints {"kernels": [...]} (each kernel's launches on its path, errors,
+   times, and its bound: the larger of the bytes it must move -- the live
+   particles' fields, the output slots it writes and the index words it
+   reads -- over 3.35 TB/s and its FP32 operations on the run's true
+   pairs over 67 TFLOP/s) and, as the last line, the result object.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -37,8 +61,25 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-REPLACES = "swift_subtask_dev_tpu/ops/pallas_flat.py:268"
-SOURCE = "swift_subtask_dev_tpu_torch/csrc/pair_flat.cu"
+FLAT_SOURCE = "swift_subtask_dev_tpu_torch/csrc/pair_flat.cu"
+FLAT_REPLACES = "swift_subtask_dev_tpu/ops/pallas_flat.py:268"
+PACKED_SOURCE = "swift_subtask_dev_tpu_torch/csrc/pair_packed.cu"
+PACKED_REPLACES = "swift_subtask_dev_tpu/ops/pallas_packed.py:48"
+
+SEDOV_N = 51            # 2 * 51^3 = 265,302 particles
+# the example's default end time: the shock radius is 0.347 (18 h of
+# the IC); much later the shell nears the periodic box's faces
+SEDOV_T_END = 0.05
+
+# H100 SXM published peaks (NVIDIA's data sheet, at 700 W)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+# FP32 operations per accepted pair of each body, counted from
+# csrc/pair_bodies.cuh: each add, multiply, compare, select, min/max,
+# divide, sqrt, rsqrt and exp counts one; the separation and r2, the
+# pair mask and the accumulation into the outputs are included
+OPS_PER_PAIR = {"density": 78, "gradient": 63, "force": 167,
+                "force_gravity": 243, "p2p_gravity": 82, "timebin": 22}
 
 
 class PhaseFailed(RuntimeError):
@@ -68,13 +109,18 @@ def phase_card():
 
 
 def phase_build():
-    from swift_subtask_dev_tpu_torch.ops import pair_flat
-    lib = pair_flat.build_kernels(force=True)
-    pair_flat._library()
-    print(f"build: nvcc {pair_flat._Lib.build_seconds:.2f} s -> {lib}")
-    for line in pair_flat._Lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    from swift_subtask_dev_tpu_torch.ops import cuda_build, pair_flat
+    from swift_subtask_dev_tpu_torch.ops import pair_packed
+    libs = [pair_flat.LIBRARY, pair_packed.LIBRARY]
+    t0 = time.perf_counter()
+    paths = cuda_build.build_all(libs, force=True)
+    for lib, path in zip(libs, paths):
+        lib.load()
+        print(f"build: nvcc {lib.build_seconds:.2f} s -> {path}")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas:", line.strip())
+    print(f"build: both libraries in {time.perf_counter() - t0:.2f} s")
 
 
 def bench_engine(n1, mesh_N, device):
@@ -104,6 +150,7 @@ def bench_engine(n1, mesh_N, device):
                  gravity_fn=solver.gas_short_range_fn(),
                  mesh_fn=solver.gas_mesh_fn(),
                  mesh_dt_scale=solver.pm.r_s)
+    eng.solver_builder = lambda g: GravitySolver(gp, g, device=device)
     eng.load_particles(ic["pos"], ic["m"], ic["v"], ic["u"], ic["h"])
     return eng, P, solver, len(ic["pos"])
 
@@ -162,6 +209,80 @@ def compare(out_k, out_p, body):
         errs.append(rel)
         max_abs = max(max_abs, d)
     return ok, max_abs, errs
+
+
+def bound(body, work, pairs):
+    """(bound_ms, bound_by): the least time the card could take for one
+    pass: the live particles' fields read once, the output slots the
+    kernel writes written once and the index words it reads (counts,
+    range words) read once over the memory rate, against the FP32
+    operations of the pass's true pairs over the FP32 rate.  ``work`` is
+    (live particles, written output slots, index bytes); padded slots,
+    which the kernels never read, are not counted."""
+    n_live, n_written, index_bytes = work
+    n_bytes = 4 * (n_live * len(body.fields)
+                   + n_written * (body.n_sum + body.n_max)) + index_bytes
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = pairs * OPS_PER_PAIR[body.name] / PEAK_FP32_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def hold_against_plain(module, launch, body, card, exact=False, reps=5):
+    """Kernel vs plain version on one launch: times (CUDA events), the
+    comparison, and the true pairs the plain version counts."""
+    import torch
+    out_k, ms = time_ms(lambda: module.pair_apply_kernel(launch, body),
+                        reps)
+    stats = {}
+    out_p, plain_ms = time_ms(
+        lambda: module.pair_apply_plain(launch, body, stats), 1,
+        warmup=False)
+    if exact:
+        ok = bool(torch.equal(out_k, out_p))
+        max_abs = 0.0 if ok else float("inf")
+        errs = [0.0 if ok else float("inf")]
+    else:
+        ok, max_abs, errs = compare(out_k, out_p, body)
+    del out_k, out_p
+    print(f"  {body.name:14s} ok={ok} max_abs_err={max_abs:.3e} "
+          f"rel_errs={[float(f'{e:.2e}') for e in errs]} kernel "
+          f"{ms:.4f} ms plain {plain_ms:.1f} ms true pairs "
+          f"{stats['pairs']} [{card}]")
+    check(ok, f"{body.name}: kernel and plain version disagree"
+          + (" (must be bit-identical)" if exact else ""))
+    return ms, plain_ms, max_abs, stats["pairs"]
+
+
+def entry(name, route_source, replaces, launches, max_abs, ms, plain_ms,
+          bound_ms, bound_by):
+    return {"name": name, "route": "cuda", "source": route_source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}   # no single PyTorch call computes these
+
+
+def flat_work(launch, body):
+    """Live particles, written slots and index bytes of one flat launch:
+    the kernel reads each column's live-tile count and the 9 x 2 range
+    words of each live tile, and writes all 128 slots of a live tile."""
+    from swift_subtask_dev_tpu_torch.ops import pair_flat
+    live_tiles = int(launch.tcounts.sum())
+    n_live = int((launch.Xi[body.fields.index("mask")] > 0).sum())
+    return (n_live, live_tiles * pair_flat.LANES,
+            4 * (launch.tcounts.numel() + 18 * live_tiles))
+
+
+def packed_work(launch):
+    """Live particles, written slots and index bytes of one packed launch:
+    the kernel reads every cell's live count and writes the slots of the
+    8-slot blocks that start below it."""
+    from swift_subtask_dev_tpu_torch.ops import pair_packed
+    counts = launch.counts.long()
+    blk = pair_packed.BLOCK
+    written = int(((counts + blk - 1) // blk * blk).clamp(max=launch.K).sum())
+    return (int(counts.sum()), written, 4 * counts.numel())
 
 
 def phase_kernel_vs_plain(device, card):
@@ -223,6 +344,11 @@ def brute_density(eng, P, n_sample=1024, seed=0):
     return err, ref.mean().item()
 
 
+def finite_state(s):
+    return [k for k, v in s.items()
+            if v.is_floating_point() and not bool(v.isfinite().all())]
+
+
 def phase_main_path(device, card, bodies):
     import torch
     from swift_subtask_dev_tpu_torch.ops import pair_flat
@@ -248,8 +374,7 @@ def phase_main_path(device, card, bodies):
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
     s = eng.state
-    bad = [k for k, v in s.items()
-           if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    bad = finite_state(s)
     check(not bad, f"non-finite state fields: {bad}")
     check(diag["n_ghost_iter"] < eng.cfg.max_ghost_iterations,
           f"init ghost did not converge ({diag['n_ghost_iter']} iter)")
@@ -293,23 +418,158 @@ def phase_main_path(device, card, bodies):
     kernels = []
     for pp in body_passes(eng, P, solver):
         launch, body = pair_flat.prepare(eng.grid, pp), pp.body
-        out_k, ms = time_ms(
-            lambda: pair_flat.pair_apply_kernel(launch, body), 5)
-        out_p, plain_ms = time_ms(
-            lambda: pair_flat.pair_apply_plain(launch, body), 1,
-            warmup=False)
-        ok, max_abs, errs = compare(out_k, out_p, body)
-        del out_k, out_p
-        print(f"  {body.name:14s} full size: ok={ok} max_abs_err="
-              f"{max_abs:.3e} rel_errs={[float(f'{e:.2e}') for e in errs]}"
-              f" kernel {ms:.3f} ms plain {plain_ms:.1f} ms [{card}]")
-        check(ok, f"{body.name}: kernel and plain version disagree at "
-              "the main path's shapes")
-        kernels.append({"name": f"pair_flat_{body.name}", "route": "cuda",
-                        "source": SOURCE, "replaces": REPLACES,
-                        "launches": launches[body.name],
-                        "max_abs_err": max_abs, "ms": ms,
-                        "plain_ms": plain_ms})
+        ms, plain_ms, max_abs, pairs = hold_against_plain(
+            pair_flat, launch, body, card)
+        b_ms, b_by = bound(body, flat_work(launch, body), pairs)
+        kernels.append(entry(f"pair_flat_{body.name}", FLAT_SOURCE,
+                             FLAT_REPLACES, launches[body.name], max_abs,
+                             ms, plain_ms, b_ms, b_by))
+    return kernels
+
+
+def sedov_run(backend, limiter, device, card, label):
+    """The example's blast at SEDOV_N through init_particles() + run(),
+    with the launch counters reset just before; the checks every path
+    shares (finite state, shock radius within 10% of Sedov's, >= 3 time
+    bins, re-grids only through the step).  Returns (engine, result,
+    launches)."""
+    import torch
+    from swift_subtask_dev_tpu_torch.examples import sedov
+    from swift_subtask_dev_tpu_torch.ops import pair_flat, pair_packed
+    eng = sedov.make_engine(SEDOV_N, SEDOV_T_END, backend, limiter, device)
+    n = int(eng.state["mask"].sum())
+    print(f"{label}: {n} particles, backend {backend!r}, limiter "
+          f"{limiter}, grid cdim={list(eng.grid.cdim)} K={eng.grid.K}, "
+          f"dt_max {eng.cfg.dt_max}, t_end {SEDOV_T_END}")
+    check(n == 2 * SEDOV_N ** 3, f"expected {2 * SEDOV_N ** 3} particles")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pair_flat.reset_launches()
+    pair_packed.reset_launches()
+    eng, res = sedov.run_blast(SEDOV_N, SEDOV_T_END, engine=eng)
+    launches = {"flat": dict(pair_flat.LAUNCHES),
+                "packed": dict(pair_packed.LAUNCHES)}
+    steps, wall = res["steps"], res["run_seconds"]
+    n_act = sum(res["n_active"])
+    print(f"  init_particles {res['init_seconds']:.3f} s; run({SEDOV_T_END})"
+          f" {steps} steps in {wall:.3f} s, t = {res['t']:.6f}: "
+          f"{n_act / wall:.1f} active-particle updates/s "
+          f"(sum n_active {n_act}), {wall / max(steps, 1) * 1e3:.2f} ms/step"
+          f" [{card}]")
+    print(f"  peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+    print(f"  time bins populated (most at one step) "
+          f"{res['bins_populated']}; woken {sum(res['n_woken'])}; "
+          f"re-grids {eng.n_regrids} (retries {eng.n_regrid_retries}, "
+          f"occupancy {eng.n_shrink_regrids}), final grid "
+          f"cdim={list(eng.grid.cdim)} K={eng.grid.K}")
+    print(f"  shock radius {res['r_shock']:.5f} vs Sedov "
+          f"{res['r_sedov']:.5f} (err {res['radius_err']:.4f}), energy "
+          f"drift {res['energy_drift']:.4e}")
+    print(f"  kernel launches in the run: {launches}")
+    bad = finite_state(eng.state)
+    check(not bad, f"non-finite state fields: {bad}")
+    check(res["radius_err"] < 0.10,
+          "shock radius off Sedov's by 10% or more (the example's rule)")
+    check(res["bins_populated"] >= 3,
+          f"only {res['bins_populated']} time bins ever populated")
+    check(eng.n_regrids == eng.n_regrid_retries + eng.n_shrink_regrids,
+          "a re-grid happened outside the step's retry and shrink trigger")
+    return eng, res, launches
+
+
+def sedov_passes(eng):
+    from swift_subtask_dev_tpu_torch.engine import NO_COSMO
+    from swift_subtask_dev_tpu_torch.ops import hydro_flat
+    s, P = eng.state, eng.sph
+    return [hydro_flat.density_pass(s, P),
+            hydro_flat.gradient_pass(s, P, NO_COSMO),
+            hydro_flat.force_pass(s, P, NO_COSMO)]
+
+
+def phase_sedov_pallas(device, card):
+    """Path A.  The example runs without the timestep limiter; at this
+    resolution that costs ~50% of the total energy in the first steps,
+    on either backend, so the example's energy rule (< 5%) is held on
+    path B (with the limiter, as SWIFT runs the blast) and path A's drift
+    is held against the same run on the flat backend (K1 on columns)."""
+    from swift_subtask_dev_tpu_torch.examples import sedov
+    from swift_subtask_dev_tpu_torch.ops import pair_packed
+    eng, res, launches = sedov_run("pallas", False, device, card,
+                                   "phase 5 (Sedov, path A)")
+    for name in pair_packed.KERNEL_BODIES:
+        check(launches["packed"].get(name, 0) > 0,
+              f"pair_packed_{name}: kernel never launched on path A")
+    kernels = []
+    for pp in sedov_passes(eng):
+        launch, body = pair_packed.prepare(eng.grid, pp), pp.body
+        ms, plain_ms, max_abs, pairs = hold_against_plain(
+            pair_packed, launch, body, card)
+        b_ms, b_by = bound(body, packed_work(launch), pairs)
+        kernels.append(entry(f"pair_packed_{body.name}", PACKED_SOURCE,
+                             PACKED_REPLACES,
+                             launches["packed"][body.name], max_abs, ms,
+                             plain_ms, b_ms, b_by))
+    del eng
+    _, twin = sedov.run_blast(SEDOV_N, SEDOV_T_END, "flat", False, device)
+    d_a, d_f = res["energy_drift"], twin["energy_drift"]
+    print(f"  the same blast on the flat backend without the limiter: "
+          f"{twin['steps']} steps, shock radius {twin['r_shock']:.5f} "
+          f"(err {twin['radius_err']:.4f}), energy drift {d_f:.4e}; "
+          f"path A's drift {d_a:.4e}, relative difference "
+          f"{abs(d_a - d_f) / d_f:.2e}; the example's energy rule (< 5%) "
+          f"is {'met' if d_a < 0.05 else 'not met'} without the limiter")
+    check(abs(d_a - d_f) <= 0.01 * d_f,
+          "path A's energy drift differs from the flat backend's on the "
+          "same configuration by more than 1%")
+    check(abs(res["r_shock"] - twin["r_shock"]) <= 0.01 * twin["r_shock"],
+          "path A's shock radius differs from the flat backend's by more "
+          "than 1%")
+    return kernels
+
+
+def last_step_active(eng):
+    """The particles active one smallest step before the end: at the end
+    every bin is active, so the timebin pass is compared on this mix."""
+    import torch
+    from swift_subtask_dev_tpu_torch.utils import timeline as tl
+    s = eng.state
+    live = s["mask"] > 0
+    b_min = int(s["time_bin"][live].min())
+    ti = eng.timeline.ti_current - tl.get_integer_timestep(b_min)
+    on = torch.as_tensor(eng.timeline.active_bins_mask(ti),
+                         device=s["mask"].device)
+    return live & on[s["time_bin"].clamp(0, tl.NUM_TIME_BINS).long()]
+
+
+def phase_sedov_flat(device, card):
+    """Path B: the flat backend with the timestep limiter."""
+    from swift_subtask_dev_tpu_torch.ops import hydro_flat, pair_flat
+    eng, res, launches = sedov_run("flat", True, device, card,
+                                   "phase 6 (Sedov, path B)")
+    check(res["energy_drift"] < 0.05,
+          "energy drift of 5% or more (the example's rule)")
+    check(sum(res["n_woken"]) > 0, "the limiter woke no particle")
+    for name in ("density", "gradient", "force", "timebin"):
+        check(launches["flat"].get(name, 0) > 0,
+              f"pair_flat_{name}: kernel never launched on path B")
+    active = last_step_active(eng)
+    print(f"  timebin pass on the particles active one smallest step "
+          f"before the end: {int(active.sum())} of "
+          f"{int((eng.state['mask'] > 0).sum())}")
+    kernels = []
+    passes = sedov_passes(eng) + [hydro_flat.timebin_pass(
+        {**eng.state, "active": active.float()}, eng.sph)]
+    for pp in passes:
+        launch, body = pair_flat.prepare(eng.grid, pp), pp.body
+        exact = body.name == "timebin"
+        ms, plain_ms, max_abs, pairs = hold_against_plain(
+            pair_flat, launch, body, card, exact=exact)
+        if exact:
+            b_ms, b_by = bound(body, flat_work(launch, body), pairs)
+            kernels.append(entry("pair_flat_timebin", FLAT_SOURCE,
+                                 FLAT_REPLACES, launches["flat"]["timebin"],
+                                 max_abs, ms, plain_ms, b_ms, b_by))
     return kernels
 
 
@@ -324,6 +584,8 @@ def main():
         phase_build()
         bodies = phase_kernel_vs_plain(device, card)
         kernels = phase_main_path(device, card, bodies)
+        kernels += phase_sedov_pallas(device, card)
+        kernels += phase_sedov_flat(device, card)
     except (PhaseFailed, ImportError, RuntimeError, ValueError,
             OSError, subprocess.SubprocessError) as e:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}",

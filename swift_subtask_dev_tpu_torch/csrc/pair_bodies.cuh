@@ -1,4 +1,5 @@
-// Pair bodies of the flat pair kernel (csrc/pair_flat.cu).
+// Pair bodies of the flat and packed pair kernels (csrc/pair_flat.cu,
+// csrc/pair_packed.cu).
 //
 // Each body is the per-pair evaluation of one loop of ops/hydro_flat.py,
 // with the same formulas and the same f32 operation order as the plain
@@ -336,5 +337,23 @@ struct P2PGravity {
     sums[2] = -gmF * dx2;
     sums[3] = -gm * Pg;
     return ok;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// timebin (the limiter's wake scan): fields (mask, off0-2, h, tb, act);
+// 1 max (-neighbour bin of ACTIVE j whose own kernel reaches i);
+// parameter gamma2
+// ---------------------------------------------------------------------------
+struct Timebin {
+  static constexpr int F = 7, NS = 0, NM = 1, NP = 1;
+  enum { H = 4, TB = 5, ACT = 6 };
+  static __device__ __forceinline__ bool eval(
+      const float*, const float* nj, float, float, float, float r2,
+      const BodyParams& p, float*, float* maxes) {
+    const float h_j = nj[H];
+    const float tb = nj[TB];
+    maxes[0] = tb > 0.f ? -tb : FL(-64.0);
+    return (nj[ACT] > 0.f) && (r2 < p.v[P_GAMMA2] * h_j * h_j) && (tb > 0.f);
   }
 };

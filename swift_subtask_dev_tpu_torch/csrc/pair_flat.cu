@@ -1,8 +1,9 @@
 // Flat (column/z-sorted) pair kernel for Hopper (sm_90a).
 //
 // Replaces: swift_subtask_dev_tpu/ops/pallas_flat.py:268 pair_apply (the
-// Pallas TPU kernel, inner `kernel` at :408) for the five bodies of the
-// main path (csrc/pair_bodies.cuh).
+// Pallas TPU kernel, inner `kernel` at :408) for its six bodies
+// (csrc/pair_bodies.cuh): density, gradient, force, force + gravity, P2P
+// gravity and the limiter's timebin scan.
 //
 // What it computes: for each 128-slot i-tile of a z-sorted column and each
 // of the 9 neighbour columns, it walks exactly the j-rows named by the
@@ -161,3 +162,4 @@ PAIR_FLAT_ENTRY(gradient, Gradient)
 PAIR_FLAT_ENTRY(force, Force)
 PAIR_FLAT_ENTRY(force_gravity, ForceGravity)
 PAIR_FLAT_ENTRY(p2p_gravity, P2PGravity)
+PAIR_FLAT_ENTRY(timebin, Timebin)

@@ -1,10 +1,12 @@
-"""The engine — one-species SPHENIX + P3M gas on the flat column grid.
+"""The engine — one-species SPHENIX (+ P3M) gas on a pair-engine grid.
 
-Port of the main path of the reference's ``engine.py``: the same step
+Port of the reference's ``engine.py`` for two backends: ``"flat"`` (the
+column grid and the flat pair kernel; the main path) and ``"pallas"`` (the
+27-cell grid and the packed pair kernel).  The same step
 
-    drift -> trigger-based z-sorted rebucket -> density + ghost ->
-    gradient -> fused force + short-range gravity -> kick2 -> timestep ->
-    kick1
+    drift -> trigger-based rebucket -> density + ghost -> gradient ->
+    force (fused with short-range gravity on flat) -> kick2 -> timestep
+    -> kick1 -> limiter wake scan (flat, optional)
 
 with the PM mesh on its own split timestep, and the same host/device
 split: the host owns the exact 64-bit integer timeline and hands the
@@ -14,9 +16,14 @@ loop that reads ``conv.all()`` each trip; the rebucket's ``cond`` is an
 ``if``; ``multi_step``'s ``scan`` is a Python loop that keeps the bin
 deviation flag on the device until ``run_fixed_dt`` reads it once.
 
-Left out (see ROADMAP.md): the timestep limiter, re-gridding (a
-:class:`RegridNeeded` is raised, not retried), cosmology, cooling, the
-other backends and multi-species runs.
+A step that hits a capacity or coverage wall raises :class:`RegridNeeded`;
+``Engine.step`` restores the pre-step state, rebuilds the grid from the
+live particles and retries (the step never modifies the tensors it is
+given, so the saved state is intact).
+
+Left out (see ROADMAP.md): the limiter on the pallas backend (the
+reference's XLA ``stencil.timebin_loop``), particle splitting, cosmology,
+cooling, the other backends and multi-species runs.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ from typing import Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .grid.cellgrid import CellGrid, bucket_fields, rebucket_offsets
+from .grid.cellgrid import (CellGrid, bucket_fields, global_positions,
+                            rebucket_offsets)
 from .models.sph import sphenix
 from .models.sph.sphenix import CosmoFactors, SPHENIXParams
 from .ops import hydro_flat
@@ -58,15 +66,26 @@ class StepTables(NamedTuple):
     dt_drift: float            # f32-rounded drift (and thermal drift)
     max_bin: int               # ceiling from dt_max
     time_base_inv: float       # f32-rounded 1/time_base (bin_from_dt)
+    wake_dv: torch.Tensor      # (57, 57) f32 — limiter wake kick:
+    # [old_bin, new_bin] -> net dt of (undo old kick1) + (advance to the
+    # new step start) + (new kick1), timestep_limit_part
+    # (timestep_limiter.h:64); velocity and thermal kicks alike
+    wake_du: torch.Tensor      # (57, 57) f32 — the thermal one
+
+
+# pair engine of each backend (the reference's _loops table)
+BACKENDS = {"flat": "flat", "pallas": "packed"}
 
 
 @dataclass(frozen=True)
 class EngineConfig:
-    """The fields of the reference's EngineConfig that the main path
-    reads (the backend is always 'flat', the rebucket trigger-based)."""
+    """The fields of the reference's EngineConfig the port reads (the
+    rebucket is always trigger-based)."""
 
     dt_min: float = 1e-17
     dt_max: float = 1e-2
+    backend: str = "flat"     # 'flat' (columns, pair_flat) | 'pallas'
+    # (27-cell grid, pair_packed)
     with_self_gravity: bool = False
     max_ghost_iterations: int = 30
     rebucket_safety: float = 0.9  # fraction of the safe margin to use
@@ -75,15 +94,23 @@ class EngineConfig:
     eps_soft: float = 1e-3    # Gravity:eps (dt_grav = sqrt(2 eta eps/|a|))
     mesh_dt_max: float = 0.0  # ceiling of the split PM-mesh interval
     # (0 -> dt_max)
+    with_timestep_limiter: bool = False  # SWIFT --limiter: cap active
+    # bins at min_ngb + 2 and wake inactive particles whose neighbours got
+    # fast (runner_do_limiter); flat backend only
+    # occupancy re-grid: rebuild tighter when the fullest cell x 1.7 is
+    # below trigger * K (<= 0 disables), at most once per cooldown steps
+    regrid_shrink_trigger: float = 0.5
+    regrid_cooldown: int = 20
 
 
 class RegridNeeded(RuntimeError):
     """A step hit a capacity/coverage wall (cell overflow or h outgrowing
-    the column edge).  The port does not re-grid: the caller rebuilds."""
+    the cell edge): the host rebuilds the grid and retries the step."""
 
-    def __init__(self, reason: str):
+    def __init__(self, reason: str, h_reach: float = 0.0):
         super().__init__(reason)
         self.reason = reason
+        self.h_reach = h_reach
 
 
 def bin_from_dt(dt: torch.Tensor, time_base_inv: float) -> torch.Tensor:
@@ -108,17 +135,22 @@ def _where_active(active, new, old):
 # ---------------------------------------------------------------------------
 
 def _ghost_density(grid: CellGrid, p: SPHENIXParams, cosmo: CosmoFactors,
-                   s: Dict, active: torch.Tensor, max_iter: int):
+                   s: Dict, active: torch.Tensor, max_iter: int,
+                   engine: str = "flat"):
     """Density loop + smoothing-length iteration (the ghost).
 
-    Re-runs only the 128-slot i-tiles holding unconverged particles (the
-    reference's unconverged-subset loops, runner_ghost.c:1085): exact,
-    because rho_i depends on h_i only, so skipped tiles keep valid values
-    and mixed tiles recompute in full.  Returns (h, dens, n_iter)."""
+    On the flat engine it re-runs only the 128-slot i-tiles holding
+    unconverged particles (the reference's unconverged-subset loops,
+    runner_ghost.c:1085): exact, because rho_i depends on h_i only, so
+    skipped tiles keep valid values and mixed tiles recompute in full.  The
+    packed engine recomputes every slot each trip (the reference's
+    non-subset branch).  Returns (h, dens, n_iter)."""
     kroot_eps = float(np.float32(p.kernel.root) * np.float32(1.0 + 1e-5))
+    subset = engine == "flat"
 
     def density_pass(h, act=None):
-        dens = hydro_flat.density_loop(grid, {**s, "h": h}, p, active_i=act)
+        dens = hydro_flat.density_loop(grid, {**s, "h": h}, p,
+                                       active_i=act, engine=engine)
         full = sphenix.end_density(p, {**s, "h": h, **dens}, cosmo)
         return {k: full[k] for k in
                 ("rho", "rho_dh", "wcount", "wcount_dh", "div_v", "rot_v")}
@@ -143,9 +175,12 @@ def _ghost_density(grid: CellGrid, p: SPHENIXParams, cosmo: CosmoFactors,
         upd = active & ~conv
         h = torch.where(upd, h_new, h)
         d_new = density_pass(h, act=upd)
-        tflag = torch.any(upd.reshape(C, W // 128, 128), dim=2)
-        fp = tflag[:, :, None].expand(C, W // 128, 128).reshape(C, W)
-        d = {k: _where_active(fp, d_new[k], d[k]) for k in d}
+        if subset:
+            tflag = torch.any(upd.reshape(C, W // 128, 128), dim=2)
+            fp = tflag[:, :, None].expand(C, W // 128, 128).reshape(C, W)
+            d = {k: _where_active(fp, d_new[k], d[k]) for k in d}
+        else:
+            d = d_new
         _, _, _, c2 = h_update(h, d, left, right)
         conv = conv | ~upd | (upd & c2)
         n_iter += 1
@@ -159,8 +194,12 @@ def _gas_loops(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
     when ``fuse_spec`` is given) on the active particles.  Returns
     (state, n_ghost_iter)."""
     tb = _tb_index(s["time_bin"])
+    engine = BACKENDS[cfg.backend]
+    # the flat engine skips i-tiles with no active particle (zeroed range
+    # words), the packed one recomputes every slot; either way the
+    # active-masked merges keep the inactive particles' old values
     h_new, dens, n_ghost_iter = _ghost_density(
-        grid, p, cosmo, s, active, cfg.max_ghost_iterations)
+        grid, p, cosmo, s, active, cfg.max_ghost_iterations, engine)
     s = {**s, "h": torch.where(active, h_new, s["h"])}
     for k, v in dens.items():
         s[k] = _where_active(active, v, s[k])
@@ -174,7 +213,8 @@ def _gas_loops(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
     for k in ("f_gradh", "pressure", "soundspeed", "balsara", "v_sig",
               "alpha_visc_max_ngb"):
         s[k] = torch.where(active, rg[k], s[k])
-    grad = hydro_flat.gradient_loop(grid, s, p, cosmo, active_i=active)
+    grad = hydro_flat.gradient_loop(grid, s, p, cosmo, active_i=active,
+                                    engine=engine)
     for k, v in grad.items():
         s[k] = torch.where(active, v, s[k])
     eg = sphenix.end_gradient(s)
@@ -195,7 +235,8 @@ def _gas_loops(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
                                     s["a_grav"])
         s["pot"] = torch.where(active, force.pop("pot"), s["pot"])
     else:
-        force = hydro_flat.force_loop(grid, s, p, cosmo, active_i=active)
+        force = hydro_flat.force_loop(grid, s, p, cosmo, active_i=active,
+                                      engine=engine)
     for k, v in force.items():
         s[k] = _where_active(active, v, s[k])
     ef = sphenix.end_force(p, s)
@@ -205,8 +246,9 @@ def _gas_loops(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
 
 def _rebucket_phase(grid: CellGrid, cfg: EngineConfig, s: Dict,
                     T: StepTables, reach: torch.Tensor):
-    """Trigger-based counting-sort rebuild: after cumulative drift D a
-    true pair can only straddle >1 column when 2*D + reach >= min_edge, so
+    """Trigger-based counting-sort rebuild (z-sorted on the flat backend):
+    after cumulative drift D a true pair can only straddle >1 cell when
+    2*D + reach >= min_edge, so
     rebucket before that (SWIFT's rebuild triggers, engine.c:2392-2448).
     Returns (state, n_overflow)."""
     mask_b = s["mask"] > 0
@@ -224,16 +266,18 @@ def _rebucket_phase(grid: CellGrid, cfg: EngineConfig, s: Dict,
     carried = {k: v for k, v in s.items()
                if k not in ("mask", "off", "drift_accum")}
     new_fields, new_mask, new_off, n_overflow = rebucket_offsets(
-        grid, s["mask"], s["off"], carried)
+        grid, s["mask"], s["off"], carried, zsort=cfg.backend == "flat")
     return ({"mask": new_mask, "off": new_off,
              "drift_accum": torch.zeros_like(accum), **new_fields},
             n_overflow)
 
 
-def _gas_kdk(p: SPHENIXParams, cfg: EngineConfig, cosmo: CosmoFactors,
-             s: Dict, T: StepTables, active, tb):
-    """kick2 -> timestep -> kick1 for the gas (kick.h kick_part,
-    runner_do_timestep).  Returns (state, too_small)."""
+def _gas_kdk(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
+             cosmo: CosmoFactors, s: Dict, T: StepTables, active, mask_b,
+             tb):
+    """kick2 -> timestep -> kick1 -> limiter for the gas (kick.h
+    kick_part, runner_do_timestep, runner_do_limiter).  Returns (state,
+    too_small, n_woken)."""
     # --- kick2: second half of the step that just ended ----------------------
     a_tot = s["a_hydro"] + s["a_grav"]
     v_full = s["v_full"] + a_tot * T.dt_half[tb][..., None]
@@ -262,6 +306,10 @@ def _gas_kdk(p: SPHENIXParams, cfg: EngineConfig, cosmo: CosmoFactors,
     too_small = active & (new_dt < cfg.dt_min)
     want_bin = torch.clamp_max(bin_from_dt(new_dt, T.time_base_inv),
                                T.max_bin)
+    if cfg.with_timestep_limiter:
+        # neighbour cap from the force-loop min reduction
+        # (make_integer_timestep, timestep.h:58)
+        want_bin = torch.minimum(want_bin, s["min_ngb_time_bin"] + 2)
     want_bin = torch.clamp(want_bin, 1, NBINS)
     cur_bin = tb.to(I32)
     up_ok = T.aligned_up[tb]
@@ -279,7 +327,42 @@ def _gas_kdk(p: SPHENIXParams, cfg: EngineConfig, cosmo: CosmoFactors,
     ke1 = sphenix.kick_extra(p, s, cosmo, T.dt_half[tb1])
     for k in ("u_full", "u_dt"):
         s[k] = torch.where(active, ke1[k], s[k])
-    return s, too_small
+
+    # --- timestep limiter: wake inactive particles near fast ones -----------
+    # (runner_do_limiter + timestep_limit_part: the woken particle's long
+    # half-kick is undone and replaced by the short-step kicks via the
+    # host-built wake tables)
+    n_woken = torch.zeros((), dtype=torch.int64, device=tb.device)
+    if cfg.with_timestep_limiter:
+        sub = {"mask": s["mask"], "off": s["off"], "h": s["h"],
+               "time_bin": s["time_bin"], "active": active.to(F32)}
+        mnb = hydro_flat.timebin_loop(grid, sub, p)
+        wake = (mask_b & ~active & (s["time_bin"] > 0)
+                & (s["time_bin"] > mnb + 2))
+        tb_now = _tb_index(s["time_bin"]).to(I32)
+        new_bin_w = torch.minimum(torch.clamp_min(mnb + 2, 1), tb_now)
+        s = apply_wake(p, cosmo, s, T, wake, new_bin_w)
+        n_woken = torch.sum(wake)
+    return s, too_small, n_woken
+
+
+def apply_wake(p: SPHENIXParams, cosmo: CosmoFactors, s: Dict,
+               T: StepTables, wake, new_bin_w):
+    """Re-bin an inactive particle mid-flight: undo its long half-kick and
+    replace it by the short-step kicks via the host wake tables
+    (timestep_limit_part, timestep_limiter.h:64)."""
+    tb_now = _tb_index(s["time_bin"])
+    iw = _tb_index(new_bin_w)
+    dv = T.wake_dv[tb_now, iw]
+    du = T.wake_du[tb_now, iw]
+    a_tot = s["a_hydro"] + s["a_grav"]
+    v_w = s["v_full"] + a_tot * dv[..., None]
+    s = {**s, "v_full": torch.where(wake[..., None], v_w, s["v_full"])}
+    ke_w = sphenix.kick_extra(p, s, cosmo, du)
+    for k in ("u_full", "u_dt"):
+        s[k] = torch.where(wake, ke_w[k], s[k])
+    s["time_bin"] = torch.where(wake, new_bin_w, s["time_bin"])
+    return s
 
 
 def _bin_counts(mask_b, time_bin):
@@ -322,14 +405,19 @@ def hydro_step(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
         s["a_grav"] = _where_active(active, a_grav, s["a_grav"])
         s["pot"] = torch.where(active, pot, s["pot"])
 
-    s, too_small = _gas_kdk(p, cfg, cosmo, s, T, active, tb)
+    s, too_small, n_woken = _gas_kdk(grid, p, cfg, cosmo, s, T, active,
+                                     mask_b, tb)
 
     diag = {
         "bin_counts": _bin_counts(mask_b, s["time_bin"]),
         "n_overflow": n_overflow,
         "n_dt_too_small": torch.sum(too_small),
         "n_ghost_iter": n_ghost_iter,
+        "n_active": torch.sum(active),
+        "n_woken": n_woken,
         "h_max_active": torch.amax(torch.where(active, s["h"], 0.0)),
+        # fullest live cell: the occupancy re-grid trigger's input
+        "k_max_live": torch.amax(torch.sum(mask_b, dim=1)),
     }
     return s, diag
 
@@ -353,18 +441,19 @@ def _init_pass(grid, p, cfg, gravity_fn, cosmo, s, T):
     """engine_init_particles: density/ghost + force + first bins + kick1."""
     mask_b = s["mask"] > 0
     active = mask_b  # everyone is active at t=0
+    engine = BACKENDS[cfg.backend]
 
     h_new, dens, n_iter = _ghost_density(grid, p, cosmo, s, active,
-                                         cfg.max_ghost_iterations)
+                                         cfg.max_ghost_iterations, engine)
     s = {**s, "h": torch.where(active, h_new, s["h"])}
     for k, v in dens.items():
         s[k] = _where_active(active, v, s[k])
     s = sphenix.no_neighbours_fallback(p, s)
     s = sphenix.reset_gradient(sphenix.prepare_gradient(p, s, cosmo))
-    s = {**s, **hydro_flat.gradient_loop(grid, s, p, cosmo)}
+    s = {**s, **hydro_flat.gradient_loop(grid, s, p, cosmo, engine=engine)}
     s = sphenix.end_gradient(s)
     s = sphenix.reset_acceleration(sphenix.prepare_force(p, s, cosmo, 0.0))
-    s = {**s, **hydro_flat.force_loop(grid, s, p, cosmo)}
+    s = {**s, **hydro_flat.force_loop(grid, s, p, cosmo, engine=engine)}
     s = sphenix.end_force(p, s)
 
     if gravity_fn is not None:
@@ -394,6 +483,7 @@ def _init_pass(grid, p, cfg, gravity_fn, cosmo, s, T):
         "n_overflow": torch.zeros((), dtype=I32, device=mask_b.device),
         "n_dt_too_small": torch.sum(too_small),
         "n_ghost_iter": n_iter,
+        "n_active": torch.sum(active),
         "h_max_active": torch.amax(torch.where(active, s["h"], 0.0)),
     }
     return s, diag
@@ -423,13 +513,21 @@ def _mesh_open(s, dt: float):
 
 class Engine:
     """Host orchestrator: owns the timeline, builds per-step tables, runs
-    the step on ``device``, reads end-of-step diagnostics."""
+    the step on ``device`` (the card unless the caller names another),
+    reads end-of-step diagnostics and re-grids when a step hits a wall."""
 
     def __init__(self, grid: CellGrid, sph: SPHENIXParams,
                  cfg: EngineConfig, time_begin: float, time_end: float,
-                 *, device, gravity_fn: Optional[Callable] = None,
+                 *, device="cuda", gravity_fn: Optional[Callable] = None,
                  mesh_fn: Optional[Callable] = None,
                  mesh_dt_scale: float = 0.0):
+        if cfg.backend not in BACKENDS:
+            raise ValueError(f"backend {cfg.backend!r} is not ported "
+                             f"(have {sorted(BACKENDS)})")
+        if cfg.with_timestep_limiter and cfg.backend != "flat":
+            raise NotImplementedError(
+                "the timestep limiter on the pallas backend (the "
+                "reference's stencil.timebin_loop) is not ported")
         self.device = torch.device(device)
         self.grid = grid
         self.sph = sph
@@ -447,10 +545,17 @@ class Engine:
         self.state: Dict[str, torch.Tensor] = {}
         self.step_count = 0
         self._ti_end_min = 0
+        # CellGrid -> GravitySolver factory: re-grids rebind gravity
+        self.solver_builder: Optional[Callable] = None
+        self._last_shrink_step = 0
+        self.n_regrids = 0          # every rebuilt grid
+        self.n_regrid_retries = 0   # steps retried after RegridNeeded
+        self.n_shrink_regrids = 0   # occupancy re-grids
 
     # --- setup ------------------------------------------------------------
     def load_particles(self, pos, m, v, u, h, pid=None):
-        """Bucket raw particle arrays into the z-sorted tiled state."""
+        """Bucket raw particle arrays into the tiled state (z-sorted on the
+        flat backend)."""
         n = len(pos)
         if pid is None:
             pid = np.arange(n, dtype=np.int32)
@@ -464,7 +569,8 @@ class Engine:
             "u_full": np.asarray(u, np.float32),
         }
         out, mask, off, n_over = bucket_fields(
-            self.grid, np.asarray(pos), fields, device=self.device)
+            self.grid, np.asarray(pos), fields, device=self.device,
+            zsort=self.cfg.backend == "flat")
         if int(n_over) != 0:
             raise RuntimeError(
                 f"{int(n_over)} particles overflowed cell capacity "
@@ -535,7 +641,10 @@ class Engine:
 
     def init_particles(self):
         """First density/ghost/force pass + initial bins + first kick1
-        (engine_init_particles, engine.c:1893)."""
+        (engine_init_particles, engine.c:1893), re-gridding on a wall."""
+        return self._with_regrid_retry(self._init_particles_once)
+
+    def _init_particles_once(self):
         if self.mesh_fn is not None:
             self._mesh_boundary()
         T = self._tables()
@@ -563,15 +672,62 @@ class Engine:
                * t.time_base <= self.cfg.dt_max):
             max_bin += 1
         dev = self.device
+        wake_dv, wake_du = self._wake_tables(ti)
         return StepTables(
             active=torch.as_tensor(t.active_bins_mask(), device=dev),
             dt_half=torch.as_tensor(dt_half, device=dev),
             dt_alpha=torch.as_tensor(dt_full, device=dev),
             aligned_up=torch.as_tensor(aligned_up, device=dev),
             dt_drift=_f32(dt_drift), max_bin=max_bin,
-            time_base_inv=_f32(t.time_base_inv))
+            time_base_inv=_f32(t.time_base_inv),
+            wake_dv=torch.as_tensor(wake_dv, device=dev),
+            wake_du=torch.as_tensor(wake_du, device=dev))
+
+    def _wake_tables(self, ti: int):
+        """(old_bin, new_bin) -> net wake kick (timestep_limit_part,
+        timestep_limiter.h:64).
+
+        A woken particle had received kick1 over [beg_old, beg_old +
+        dti_o/2]; the limiter (i) reverses it, (ii) kicks over [beg_old,
+        beg_new] (beg_new = last dti_n-aligned tick <= ti), (iii) applies
+        the new step's kick1 [beg_new, beg_new + dti_n/2], merged into one
+        net dt per (old, new) bin pair; without cosmology the velocity and
+        thermal kicks share it."""
+        wake_dv = np.zeros((NBINS + 1, NBINS + 1), np.float32)
+        wake_du = np.zeros((NBINS + 1, NBINS + 1), np.float32)
+        if not self.cfg.with_timestep_limiter or ti <= 0:
+            return wake_dv, wake_du
+        tb = self.timeline.time_base
+        for bo in range(2, NBINS + 1):
+            dto = tl.get_integer_timestep(bo)
+            beg_o = dto * ((ti - 1) // dto)
+            half_o = beg_o + dto // 2
+            for bn in range(1, bo):
+                dtn = tl.get_integer_timestep(bn)
+                beg_n = dtn * (ti // dtn)
+                half_n = beg_n + dtn // 2
+                dv = ((beg_n - half_o) + (half_n - beg_n)) * tb
+                wake_dv[bo, bn] = dv
+                wake_du[bo, bn] = dv
+        return wake_dv, wake_du
 
     def step(self):
+        """One step, re-gridding and retrying it on a wall, then the
+        occupancy shrink check (the reference's Engine.step without
+        particle splitting)."""
+        diag = self._with_regrid_retry(self._step_once)
+        trig = self.cfg.regrid_shrink_trigger
+        k_need = float(diag.get("k_max_live", 0.0))
+        if (trig > 0 and k_need > 0 and self.grid.K > 128
+                and 1.7 * k_need < trig * self.grid.K
+                and self.step_count - self._last_shrink_step
+                >= self.cfg.regrid_cooldown):
+            self.regrid()
+            self._last_shrink_step = self.step_count
+            self.n_shrink_regrids += 1
+        return diag
+
+    def _step_once(self):
         """Advance to the next ti_end_min (engine_step, engine.c:2245)."""
         t = self.timeline
         ti_next = self._ti_end_min
@@ -591,6 +747,98 @@ class Engine:
             self._mesh_boundary()
         return diag
 
+    # --- automatic re-gridding (space_regrid, space.c) ---------------------
+    def _with_regrid_retry(self, fn, max_attempts: int = 3):
+        """Run a step; on a capacity/coverage wall restore the pre-step
+        state and timeline, rebuild the grid from the live particles and
+        retry.  A failed attempt leaves the saved tensors untouched: the
+        step builds new tensors and new dicts, never writes into them."""
+        for _ in range(max_attempts):
+            saved = (self.state, self.timeline.ti_current, self._ti_end_min,
+                     self.step_count, self.ti_mesh_end, self.ti_mesh_mid)
+            try:
+                return fn()
+            except RegridNeeded as e:
+                (self.state, self.timeline.ti_current, self._ti_end_min,
+                 self.step_count, self.ti_mesh_end, self.ti_mesh_mid) \
+                    = saved
+                self.n_regrid_retries += 1
+                self.regrid(h_reach=e.h_reach)
+        raise RuntimeError(
+            f"re-grid did not converge after {max_attempts} attempts")
+
+    def _grid_reach(self, h_reach: float = 0.0) -> float:
+        """Interaction range a rebuilt grid must cover."""
+        reach = float(self.cfg.p2p_reach)
+        if "h" in self.state:
+            mask = self.state["mask"] > 0
+            if bool(mask.any()):
+                h_now = float(self.state["h"][mask].max())
+                reach = max(reach, h_now * self.sph.kernel.gamma * 1.05)
+        return max(reach, h_reach * 1.05)
+
+    def _extract_particles(self, state):
+        """Live particles of a tiled state -> (pos f64 (N, 3), fields)."""
+        mask = (state["mask"] > 0).cpu().numpy()
+        pos = global_positions(self.grid, state["off"])[mask]
+        K = state["mask"].shape[1]
+        fields = {}
+        for k, v in state.items():
+            if k in ("mask", "off"):
+                continue
+            if v.dim() >= 2 and tuple(v.shape[:2]) == (self.grid.C, K):
+                fields[k] = v.cpu().numpy()[mask]
+        return pos, fields
+
+    def _rebucket_species(self, grid: CellGrid, pos, fields):
+        """Bucket extracted particles onto a new grid."""
+        out, mask, off, n_over = bucket_fields(
+            grid, pos, fields, device=self.device,
+            zsort=self.cfg.backend == "flat")
+        if int(n_over) != 0:
+            raise RuntimeError(
+                f"{int(n_over)} particles overflow even the rebuilt grid")
+        return {"mask": mask, "off": off, **out,
+                "drift_accum": torch.zeros((), dtype=F32,
+                                           device=self.device)}
+
+    def _build_grid(self, pos_all, reach: float) -> CellGrid:
+        if self.cfg.backend == "flat":
+            return CellGrid.build_columns(self.grid.box, reach, pos_all)
+        return CellGrid.build_for_positions(self.grid.box, reach, pos_all,
+                                            headroom=1.6)
+
+    def regrid(self, h_reach: float = 0.0):
+        """Rebuild the grid from the live state and re-bucket everything
+        (space_regrid + space_rebuild): cdim and K come from the actual
+        particle distribution.  Gravity closures capture the grid, so with
+        gravity they are rebuilt from ``solver_builder`` (a CellGrid ->
+        GravitySolver factory); without one this raises before anything
+        is replaced."""
+        gravity = self.gravity_fn is not None or self.mesh_fn is not None
+        if gravity and self.solver_builder is None:
+            raise RuntimeError(
+                "auto re-grid with gravity needs engine.solver_builder "
+                "(a CellGrid -> GravitySolver factory): the old "
+                "gravity_fn is bound to the replaced grid")
+        if gravity and self.mesh_fn is None:
+            raise NotImplementedError(
+                "re-binding gravity without a split PM mesh is not ported")
+        reach = self._grid_reach(h_reach)
+        pos, fields = self._extract_particles(self.state)
+        new_grid = self._build_grid(pos, reach)
+        state = self._rebucket_species(new_grid, pos, fields)
+        if gravity:
+            self._bind_solver(self.solver_builder(new_grid))
+        self.state, self.grid = state, new_grid
+        self.n_regrids += 1
+
+    def _bind_solver(self, solver):
+        """The split-mesh gravity of ``solver`` (the port's only mode)."""
+        self.gravity_fn = solver.gas_short_range_fn()
+        self.mesh_fn = solver.gas_mesh_fn()
+        self.mesh_dt_scale = solver.pm.r_s
+
     def _post_step(self, diag):
         counts = diag["bin_counts"].cpu().numpy()
         self._ti_end_min = self.timeline.ti_end_min_from_bins(counts)
@@ -606,7 +854,7 @@ class Engine:
         if h_reach > min(self.grid.edge) * (1 + 1e-5):
             raise RegridNeeded(
                 f"smoothing length reach {h_reach:.4g} exceeds cell edge "
-                f"{min(self.grid.edge):.4g}")
+                f"{min(self.grid.edge):.4g}", h_reach=h_reach)
 
     def run_fixed_dt(self, n_steps: int, per_launch: int = 8):
         """Advance n_steps with the global fixed timestep (= dt_max) in
@@ -642,3 +890,24 @@ class Engine:
         counts = np.zeros(NBINS + 1, int)
         counts[b] = 1
         self._ti_end_min = self.timeline.ti_end_min_from_bins(counts)
+
+    @property
+    def time(self) -> float:
+        return self.timeline.time_of(self.timeline.ti_current)
+
+    def run(self, t_end: Optional[float] = None, max_steps: int = 10 ** 9,
+            on_step: Optional[Callable[[Dict], None]] = None):
+        """Step until ti_current reaches t_end (or max_steps); returns the
+        number of steps.  ``on_step`` receives each step's diagnostics."""
+        t_end = self.timeline.time_end if t_end is None else t_end
+        ti_end = min(
+            tl.MAX_NR_TIMESTEPS,
+            int(round((t_end - self.timeline.time_begin)
+                      / self.timeline.time_base)))
+        steps = 0
+        while self.timeline.ti_current < ti_end and steps < max_steps:
+            diag = self.step()
+            if on_step is not None:
+                on_step(diag)
+            steps += 1
+        return steps

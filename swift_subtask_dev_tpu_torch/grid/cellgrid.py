@@ -1,14 +1,19 @@
-"""The column grid and its z-sorted bucketing, in torch.
+"""The cell grid and its bucketing, in torch.
 
-Port of the reference's ``grid/cellgrid.py`` for the flat backend: a
-periodic grid of ``ncx * ncy`` (x, y) columns, each a fixed-capacity tile
-of ``K`` slots holding its particles sorted by z.  Positions inside the
-engine are (column, f32 offset-from-corner) pairs.
+Port of the reference's ``grid/cellgrid.py``: a periodic grid of
+``ncx * ncy * ncz`` cells, each a fixed-capacity tile of ``K`` slots.  The
+flat backend uses columns (``ncz == 1``) whose particles are sorted by z
+(``zsort=True``); the 27-cell backend uses a 3-d grid whose particles keep
+their input order within a cell (``zsort=False``).  Positions inside the
+engine are (cell, f32 offset-from-corner) pairs.
 
 The bucketing reproduces the reference bit for bit: the same f32
-mod/floor chain, the same (cell, z) lexicographic order (two stable sorts:
-z first, then cell), the same rank-in-run and overflow sentinel.  Every
-function here runs on whatever device its tensors live on.
+mod/floor chain, the same order (one stable sort by cell, or the (cell, z)
+lexicographic order as two stable sorts: z first, then cell), the same
+rank-in-run and overflow sentinel.  Live particles fill a prefix of their
+cell's slots.  Every function here runs on whatever device its tensors
+live on; ``bucket_fields`` puts new tensors on the card unless the caller
+names another device.
 """
 
 from __future__ import annotations
@@ -39,8 +44,20 @@ class CellGrid:
     def __post_init__(self):
         if any(c < 3 and c != 1 for c in self.cdim):
             raise ValueError(
-                f"cdim {self.cdim} < 3: neighbour offsets would alias "
-                "(an axis of exactly 1 is the column layout)")
+                f"cdim {self.cdim} < 3: the 27-stencil needs >= 3 cells per "
+                "axis (otherwise offsets alias and pairs double-count); "
+                "an axis of exactly 1 is the column layout of the flat "
+                "backend, which never runs the stencil")
+
+    def validate_range(self, interaction_range: float) -> None:
+        """Check every cell edge covers the interaction range (a smaller
+        edge would silently lose pairs)."""
+        bad = [e for e in self.edge if e < interaction_range * (1 - 1e-6)]
+        if bad:
+            raise ValueError(
+                f"cell edges {self.edge} smaller than interaction range "
+                f"{interaction_range}: box too thin or h too large "
+                f"(need box >= 3*range per axis)")
 
     @property
     def C(self) -> int:
@@ -57,6 +74,52 @@ class CellGrid:
         return np.asarray(self.edge, dtype=np.float64)
 
     @staticmethod
+    def _cdim_for(box, interaction_range: float, min_cdim: int,
+                  max_cdim: int):
+        return [int(np.clip(int(math.floor(b / max(interaction_range,
+                                                     1e-30))),
+                            min_cdim, max_cdim)) for b in box]
+
+    @staticmethod
+    def build(box, interaction_range: float, n_particles: int,
+              occupancy: float = 0.55, k_align: int = 8,
+              max_cdim: int = 128, min_cdim: int = 3,
+              k_max: int = 2048) -> "CellGrid":
+        """3-d grid with cell edges >= interaction_range; K targets a mean
+        occupancy of ``occupancy``, rounded up to a multiple of
+        ``k_align``."""
+        box = tuple(float(b) for b in box)
+        cdim = CellGrid._cdim_for(box, interaction_range, min_cdim,
+                                  max_cdim)
+        C = cdim[0] * cdim[1] * cdim[2]
+        mean_per_cell = n_particles / max(C, 1)
+        K = int(math.ceil(mean_per_cell / occupancy / k_align)) * k_align
+        K = min(max(K, k_align), k_max)
+        return CellGrid(box=box, cdim=tuple(cdim), K=K)
+
+    @staticmethod
+    def build_for_positions(box, interaction_range: float, pos,
+                            headroom: float = 1.5, k_align: int = 8,
+                            max_cdim: int = 128, min_cdim: int = 3
+                            ) -> "CellGrid":
+        """Like :meth:`build`, but K = fullest cell's count * headroom
+        (rounded up to ``k_align``), from a histogram of ``pos`` on the
+        candidate grid."""
+        box = tuple(float(b) for b in box)
+        pos = np.asarray(pos, np.float64)
+        cdim = CellGrid._cdim_for(box, interaction_range, min_cdim,
+                                  max_cdim)
+        edge = np.asarray(box) / np.asarray(cdim)
+        ijk = np.floor(np.mod(pos, box) / edge).astype(np.int64)
+        ijk = np.clip(ijk, 0, np.asarray(cdim) - 1)
+        lin = (ijk[:, 0] * cdim[1] + ijk[:, 1]) * cdim[2] + ijk[:, 2]
+        max_count = int(np.bincount(lin).max()) if len(lin) else 1
+        K = int(math.ceil(max_count * headroom / k_align)) * k_align
+        g = CellGrid(box=box, cdim=tuple(cdim), K=max(K, k_align))
+        g.validate_range(interaction_range)
+        return g
+
+    @staticmethod
     def build_columns(box, interaction_range: float, pos,
                       headroom: float = 1.4, w_align: int = 128,
                       max_cdim: int = 512) -> "CellGrid":
@@ -68,10 +131,7 @@ class CellGrid:
         """
         box = tuple(float(b) for b in box)
         pos = np.asarray(pos, np.float64)
-        cd = []
-        for b in box[:2]:
-            n = int(math.floor(b / max(interaction_range, 1e-30)))
-            cd.append(int(np.clip(n, 3, max_cdim)))
+        cd = CellGrid._cdim_for(box[:2], interaction_range, 3, max_cdim)
         edge = np.asarray([box[0] / cd[0], box[1] / cd[1]])
         ij = np.floor(np.mod(pos[:, :2], box[:2]) / edge).astype(np.int64)
         ij = np.clip(ij, 0, np.asarray(cd) - 1)
@@ -125,9 +185,19 @@ def _as_f32_tensor(x, device) -> torch.Tensor:
     return t.to(F32) if t.dtype == torch.float64 else t
 
 
-def bucket_fields(grid: CellGrid, pos, fields: Dict, device=None):
+def _cell_order(cell: torch.Tensor, z: torch.Tensor,
+                zsort: bool) -> torch.Tensor:
+    """Slot order: by cell (stable), and by z within a cell if zsort."""
+    if zsort:
+        return _lexsort(z, cell)
+    return torch.sort(cell, stable=True).indices
+
+
+def bucket_fields(grid: CellGrid, pos, fields: Dict, device="cuda",
+                  zsort: bool = True):
     """Counting-sort N particles into (C, K, ...) padded tiles, z-sorted
-    within each column tile (the reference's ``zsort=True``).
+    within each tile when ``zsort`` (the flat backend's columns), else in
+    input order within each cell (the reference's ``zsort=False``).
 
     pos: (N, 3) absolute positions (any float dtype; wrapped periodically,
     computed in f32 like the reference).  fields: dict of (N,) or (N, 3)
@@ -154,7 +224,7 @@ def bucket_fields(grid: CellGrid, pos, fields: Dict, device=None):
             + ixyz[:, 1] % ncy) * ncz + ixyz[:, 2] % ncz
     cell = cell.to(torch.int64)
 
-    order = _lexsort(p[:, 2], cell)
+    order = _cell_order(cell, p[:, 2], zsort)
     cell_s = cell[order]
     rank = _rank_in_run(cell_s)
 
@@ -176,9 +246,9 @@ def bucket_fields(grid: CellGrid, pos, fields: Dict, device=None):
 
 
 def rebucket_offsets(grid: CellGrid, mask: torch.Tensor, off: torch.Tensor,
-                     fields: Dict[str, torch.Tensor]):
+                     fields: Dict[str, torch.Tensor], zsort: bool = True):
     """Re-bucket from existing (C, K) tiles after drift, z-sorted within
-    each column tile (the reference's ``zsort=True``).
+    each tile when ``zsort`` (as :func:`bucket_fields`).
 
     Computes each slot's new cell from its (possibly out-of-cell) offset
     and redistributes all fields — exact in f32 because it never forms
@@ -209,7 +279,7 @@ def rebucket_offsets(grid: CellGrid, mask: torch.Tensor, off: torch.Tensor,
     valid = mask.reshape(-1) > 0
     new_cell = torch.where(valid, new_cell, C)  # invalid slots sort last
 
-    order = _lexsort(new_off[..., 2].reshape(-1), new_cell)
+    order = _cell_order(new_cell, new_off[..., 2].reshape(-1), zsort)
     cell_s = new_cell[order]
     rank = _rank_in_run(cell_s)
 

@@ -40,10 +40,11 @@ class GravitySolver(nn.Module):
     """Owns the PM mesh and computes P3M accelerations for gas tiles.
 
     Buffers: ``mesh_green`` (N, N, N//2+1), the optimal influence
-    function, and ``corners`` (C, 3), the column corner positions.
+    function, and ``corners`` (C, 3), the column corner positions, on
+    ``device`` (the card unless the caller names another).
     """
 
-    def __init__(self, gp: GravityParams, grid: CellGrid, device=None):
+    def __init__(self, gp: GravityParams, grid: CellGrid, device="cuda"):
         super().__init__()
         if grid.cdim[2] != 1:
             raise ValueError("the port's GravitySolver runs on the flat "

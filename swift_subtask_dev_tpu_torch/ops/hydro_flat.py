@@ -1,11 +1,16 @@
-"""SPHENIX hydro and P2P gravity loops on the flat pair engine.
+"""SPHENIX hydro, P2P gravity and limiter loops on the pair engines.
 
-Port of the flat-backend loops of the reference's ``ops/hydro_pallas.py``
-(density, gradient, force, fused force + short-range gravity, and P2P
-gravity).  Each loop builds a :class:`~.pair_flat.PairPass` — the (Ncol, W)
-field tiles in the body's field order, the body's constants and its plain
-torch callback — and runs it through ``pair_flat.pair_apply`` (the CUDA
-kernel on the card, the plain version on the CPU).
+Port of the reference's ``ops/hydro_pallas.py``: density, gradient and
+force on either pair engine (``engine="flat"``: the column/z-sorted
+``pair_flat``; ``engine="packed"``: the 27-cell ``pair_packed``, as the
+reference's ``ENGINES`` table), and fused force + short-range gravity, P2P
+gravity and the limiter's timebin scan on the flat engine.  Each loop
+builds a :class:`~.pair_flat.PairPass` — the (C, K) field tiles in the
+body's field order, the body's constants and its plain torch callback —
+and runs it through the engine's ``pair_apply`` (the CUDA kernel on the
+card, the plain version on the CPU).  ``active_i`` (skip i-tiles with no
+active particle) applies to the flat engine only; the packed engine
+recomputes every slot, as the reference's does.
 
 Conventions kept from the reference: padded slots hold division-safe
 fills (``_san``: h, m, rho, P = 1); the gravity mass is ``m * mask``; the
@@ -25,12 +30,11 @@ from ..models.sph import sphenix
 from ..models.sph.kernels import CUBIC_SPLINE
 from ..models.sph.sphenix import CosmoFactors, SPHENIXParams
 from . import p2p_gravity as pg
-from .pair_flat import PairBody, PairPass, pair_apply
+from . import pair_flat, pair_packed
+from .pair_flat import PairBody, PairPass
+from .stencil import NBIN_SENTINEL
 
 F32 = torch.float32
-# empty-bin sentinel of the min-neighbour-bin reduction (reference
-# ops/stencil.py NBIN_SENTINEL)
-NBIN_SENTINEL = 64
 
 _COMMON = ("mask", "off0", "off1", "off2")
 DENSITY_FIELDS = _COMMON + ("v0", "v1", "v2", "h", "hinv", "m")
@@ -41,6 +45,18 @@ FORCE_FIELDS = _COMMON + ("v0", "v1", "v2", "h", "m", "u", "rho", "P", "cs",
                           "rhoinv", "pr2")
 FORCE_GRAVITY_FIELDS = FORCE_FIELDS + ("gm",)
 P2P_FIELDS = _COMMON + ("h", "m")
+TIMEBIN_FIELDS = _COMMON + ("h", "tb", "act")
+
+ENGINES = ("flat", "packed")
+
+
+def _apply(engine: str, grid: CellGrid, pp: PairPass, active_i=None):
+    """Run a pass on the named engine; ``active_i`` is a flat-only hint."""
+    if engine == "flat":
+        return pair_flat.pair_apply(grid, pp, active_i)
+    if engine == "packed":
+        return pair_packed.pair_apply(grid, pp)
+    raise ValueError(f"unknown pair engine {engine!r} (have {ENGINES})")
 
 
 def _vec(fields: Dict, s: Dict, name: str):
@@ -250,13 +266,35 @@ def p2p_gravity_pass(s: Dict, G: float, H_soft: float, r_s: float,
     return PairPass(body, fields, range_scale=1.0)
 
 
+def timebin_pass(s: Dict, p: SPHENIXParams) -> PairPass:
+    """Min time bin over ACTIVE neighbours whose own kernel reaches i
+    (``s["active"]`` is 0/1 f32): the limiter's wake scan."""
+    fields = _common_fields(s)
+    fields["h"] = _san(s, "h")
+    fields["tb"] = s["time_bin"].to(F32)
+    fields["act"] = s["active"]
+    gamma2 = float(p.kernel.gamma2)
+    big_bin = float(NBIN_SENTINEL)
+
+    def fn(sf, nf, dx, r2):
+        h_j = nf("h")
+        ok = (nf("act") > 0) & (r2 < gamma2 * h_j * h_j) & (nf("tb") > 0)
+        neg_tb = torch.where(nf("tb") > 0, -nf("tb"), -big_bin)
+        return ok, [], [neg_tb]
+
+    body = PairBody("timebin", TIMEBIN_FIELDS, 0, 1, (gamma2,), fn)
+    return PairPass(body, fields, range_scale=float(p.kernel.gamma),
+                    sym_range=True)
+
+
 # ---------------------------------------------------------------------------
-# Loops (the reference's hydro_pallas contracts, flat engine)
+# Loops (the reference's hydro_pallas contracts, both engines)
 # ---------------------------------------------------------------------------
 
 def density_loop(grid: CellGrid, s: Dict, p: SPHENIXParams,
-                 active_i: torch.Tensor = None) -> Dict[str, torch.Tensor]:
-    sums, _ = pair_apply(grid, density_pass(s, p), active_i)
+                 active_i: torch.Tensor = None,
+                 engine: str = "flat") -> Dict[str, torch.Tensor]:
+    sums, _ = _apply(engine, grid, density_pass(s, p), active_i)
     m = s["mask"]
     return {
         "rho": sums[0] * m, "rho_dh": sums[1] * m, "wcount": sums[2] * m,
@@ -266,9 +304,10 @@ def density_loop(grid: CellGrid, s: Dict, p: SPHENIXParams,
 
 
 def gradient_loop(grid: CellGrid, s: Dict, p: SPHENIXParams,
-                  cosmo: CosmoFactors,
-                  active_i: torch.Tensor = None) -> Dict[str, torch.Tensor]:
-    sums, maxes = pair_apply(grid, gradient_pass(s, p, cosmo), active_i)
+                  cosmo: CosmoFactors, active_i: torch.Tensor = None,
+                  engine: str = "flat") -> Dict[str, torch.Tensor]:
+    sums, maxes = _apply(engine, grid, gradient_pass(s, p, cosmo),
+                         active_i)
     m = s["mask"]
     return {"laplace_u": sums[0] * m,
             "v_sig": torch.maximum(s["v_sig"], maxes[0]),
@@ -289,9 +328,9 @@ def _force_out(s, sums, maxes):
 
 
 def force_loop(grid: CellGrid, s: Dict, p: SPHENIXParams,
-               cosmo: CosmoFactors,
-               active_i: torch.Tensor = None) -> Dict[str, torch.Tensor]:
-    sums, maxes = pair_apply(grid, force_pass(s, p, cosmo), active_i)
+               cosmo: CosmoFactors, active_i: torch.Tensor = None,
+               engine: str = "flat") -> Dict[str, torch.Tensor]:
+    sums, maxes = _apply(engine, grid, force_pass(s, p, cosmo), active_i)
     return _force_out(s, sums, maxes)
 
 
@@ -302,7 +341,7 @@ def force_gravity_loop(grid: CellGrid, s: Dict, p: SPHENIXParams,
     """force_loop's dict plus "a_grav" (C,W,3) and "pot" (C,W), from one
     fused traversal."""
     pp = force_gravity_pass(s, p, cosmo, G, H_soft, r_s, r_cut)
-    sums, maxes = pair_apply(grid, pp, active_i)
+    sums, maxes = pair_flat.pair_apply(grid, pp, active_i)
     out = _force_out(s, sums, maxes)
     m = s["mask"]
     out["a_grav"] = torch.stack([sums[5] * m, sums[6] * m, sums[7] * m], -1)
@@ -316,7 +355,15 @@ def p2p_gravity_loop(grid: CellGrid, s: Dict, G: float, H_soft: float,
     pairs beyond r_cut are left to the PM mesh.  Returns (acc (C,W,3),
     pot (C,W))."""
     pp = p2p_gravity_pass(s, G, H_soft, r_s, r_cut)
-    sums, _ = pair_apply(grid, pp)
+    sums, _ = pair_flat.pair_apply(grid, pp)
     m = s["mask"]
     return (torch.stack([sums[0] * m, sums[1] * m, sums[2] * m], -1),
             sums[3] * m)
+
+
+def timebin_loop(grid: CellGrid, s: Dict, p: SPHENIXParams) -> torch.Tensor:
+    """(C, W) i32 min time bin over active neighbours on the flat engine
+    (``NBIN_SENTINEL`` where there is none): the wake scan of the timestep
+    limiter.  ``s`` holds mask, off, h, time_bin and active (0/1 f32)."""
+    _, maxes = pair_flat.pair_apply(grid, timebin_pass(s, p))
+    return torch.clamp_max(-maxes[0], float(NBIN_SENTINEL)).to(torch.int32)

@@ -21,19 +21,14 @@ every output, live tiles with no accepted pair read 0 (sums) / -inf (maxes).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
-import time
 from dataclasses import dataclass
-from pathlib import Path
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..grid.cellgrid import CellGrid
+from .cuda_build import KernelLibrary
 
 F32 = torch.float32
 I32 = torch.int32
@@ -274,25 +269,45 @@ def pair_apply(grid: CellGrid, pp: PairPass,
 # Plain torch version (same contract as the kernel)
 # ---------------------------------------------------------------------------
 
-def pair_apply_plain(launch: PairLaunch, body: PairBody) -> torch.Tensor:
+def pair_apply_plain(launch: PairLaunch, body: PairBody,
+                     stats: Optional[Dict] = None) -> torch.Tensor:
     """(n_sum + n_max, Ncol*W) outputs of ``body`` evaluated densely over
-    every (i slot, j row) of each tile's 9 neighbour columns, masked to the
-    rows the range words name.  Chunked over columns to bound memory."""
+    every (i slot, j row) of each live tile's 9 neighbour columns, masked
+    to the rows the range words name.  Rows at or past the fullest
+    column's live count are left out: every column's live particles fill
+    a prefix of its slots (checked here; a violation raises), so those
+    rows are empty.  Chunked over columns to bound memory.
+
+    ``stats``, when given, receives ``"pairs"``: the accepted pairs whose i
+    slot is live (the work the pass needs, for a roofline bound)."""
     L = launch
     dev = L.Xi.device
     Ncol, W = L.ncx * L.ncy, L.W
-    TPC = W // LANES
     F = len(body.fields)
     fidx = {n: i for i, n in enumerate(body.fields)}
     n_out = body.n_sum + body.n_max
     nbr = torch.as_tensor(_nbr_table(L.ncx, L.ncy), dtype=torch.int64,
                           device=dev)
-    xi_all = L.Xi.reshape(F, Ncol, TPC, LANES, 1)
-    xa_all = L.Xa.reshape(Ncol, W, F)
+    live_j = L.Xa.reshape(Ncol, W, F)[..., fidx["mask"]] > 0
+    counts = torch.sum(live_j, dim=1)
     rows = torch.arange(W, device=dev, dtype=I32)
+    if bool(torch.any(live_j & (rows[None, :] >= counts[:, None]))):
+        raise ValueError("pair_apply_plain: a live slot lies past its "
+                         "column's count (columns must be front-packed)")
+    Wj = int(counts.max()) if Ncol else 0
+    TPC = int(L.tcounts.max()) if Ncol else 0     # live tiles of any column
+    out = torch.zeros((n_out, Ncol, W // LANES, LANES), dtype=F32,
+                      device=dev)
+    if Wj == 0 or TPC == 0:
+        if stats is not None:
+            stats["pairs"] = 0
+        return out.reshape(n_out, Ncol * W)
+    xi_all = L.Xi.reshape(F, Ncol, W // LANES, LANES, 1)[:, :, :TPC]
+    xa_all = L.Xa.reshape(Ncol, W, F)[:, :Wj]
+    rows = rows[:Wj]
     inv_boxz = 1.0 / L.boxz
-    out = torch.zeros((n_out, Ncol, TPC, LANES), dtype=F32, device=dev)
-    nc = max(1, _PLAIN_PAIRS.get(dev.type, 1 << 20) // (TPC * LANES * W))
+    nc = max(1, _PLAIN_PAIRS.get(dev.type, 1 << 20) // (TPC * LANES * Wj))
+    n_pairs = torch.zeros((), dtype=torch.int64, device=dev)
 
     for c0 in range(0, Ncol, nc):
         cols = slice(c0, min(c0 + nc, Ncol))
@@ -307,12 +322,12 @@ def pair_apply_plain(launch: PairLaunch, body: PairBody) -> torch.Tensor:
         mx = [torch.full((n, TPC, LANES), float("-inf"), dtype=F32,
                          device=dev) for _ in range(body.n_max)]
         for o, (dx, dy) in enumerate(OFFSETS_9):
-            xj = xa_all[nbr[cols, o]]               # (n, W, F)
+            xj = xa_all[nbr[cols, o]]               # (n, Wj, F)
 
             def nf(name):
-                return xj[:, None, None, :, fidx[name]]  # (n,1,1,W)
+                return xj[:, None, None, :, fidx[name]]  # (n,1,1,Wj)
 
-            w = L.ranges[cols, :, o, :]             # (n, TPC, 2)
+            w = L.ranges[cols, :TPC, o, :]          # (n, TPC, 2)
             s = (w & 0xFFFF) * GRAN
             e = s + ((w >> 16) & 0xFFFF) * GRAN
             r = rows[None, None, :]
@@ -329,6 +344,8 @@ def pair_apply_plain(launch: PairLaunch, body: PairBody) -> torch.Tensor:
             ok_extra, sums, maxes = body.fn(sf, nf, dxv, r2)
             ok = ((nf("mask") > 0) & (r2 > 0) & ok_extra
                   & row_ok[:, :, None, :])
+            if stats is not None:
+                n_pairs += torch.sum(ok & (sf("mask") > 0))
             for q, val in enumerate(sums):
                 acc[q] = acc[q] + torch.sum(torch.where(ok, val, 0.0),
                                             dim=-1)
@@ -336,12 +353,14 @@ def pair_apply_plain(launch: PairLaunch, body: PairBody) -> torch.Tensor:
                 mx[q] = torch.maximum(mx[q], torch.amax(
                     torch.where(ok, val, float("-inf")), dim=-1))
         for q in range(body.n_sum):
-            out[q, cols] = acc[q]
+            out[q, cols, :TPC] = acc[q]
         for q in range(body.n_max):
-            out[body.n_sum + q, cols] = mx[q]
-    live = (torch.arange(TPC, device=dev)[None, :]
+            out[body.n_sum + q, cols, :TPC] = mx[q]
+    live = (torch.arange(W // LANES, device=dev)[None, :]
             < L.tcounts[:, None].to(torch.int64))
     out = torch.where(live[None, :, :, None], out, 0.0)
+    if stats is not None:
+        stats["pairs"] = int(n_pairs)
     return out.reshape(n_out, Ncol * W)
 
 
@@ -349,79 +368,22 @@ def pair_apply_plain(launch: PairLaunch, body: PairBody) -> torch.Tensor:
 # CUDA kernel: build (nvcc, at first use), bind (ctypes), launch
 # ---------------------------------------------------------------------------
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_BUILD = Path(__file__).resolve().parent.parent.parent / "build"
-_SOURCES = ("pair_flat.cu", "pair_bodies.cuh")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+BODY_NAMES = ("density", "gradient", "force", "force_gravity", "p2p_gravity",
+              "timebin")
 
 
-class _Lib:
-    """The loaded kernel library (one per process)."""
-
-    handle: Optional[ctypes.CDLL] = None
-    build_log: str = ""
-    build_seconds: float = 0.0
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    return str(cand) if cand.exists() else "nvcc"
+def _bind(lib: ctypes.CDLL) -> None:
+    for name in BODY_NAMES:
+        fn = getattr(lib, f"pair_flat_{name}")
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_float] * 4
+                       + [ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
 
 
-def _library_path(nvcc: str) -> Path:
-    """``build/libpair_flat-<key>.so``, keyed by the sources, NVCC_FLAGS
-    and the compiler's version, so a change to any of them rebuilds."""
-    key = hashlib.sha256()
-    for name in _SOURCES:
-        key.update((_CSRC / name).read_bytes())
-    key.update(" ".join(NVCC_FLAGS).encode())
-    ver = subprocess.run([nvcc, "--version"], capture_output=True,
-                         text=True, check=True).stdout
-    key.update(ver.encode())
-    return _BUILD / f"libpair_flat-{key.hexdigest()[:16]}.so"
-
-
-def build_kernels(force: bool = False) -> Path:
-    """Compile ``csrc/pair_flat.cu`` with nvcc (sm_90a, IEEE math: no fast
-    math, no FMA contraction) into ``build/``, unless a library built from
-    the same sources, flags and compiler is there.  Raises on a compiler
-    error."""
-    nvcc = _nvcc()
-    lib = _library_path(nvcc)
-    if not force and lib.exists():
-        return lib
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(_CSRC / "pair_flat.cu")]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    _Lib.build_seconds = time.perf_counter() - t0
-    _Lib.build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
-                           f"{_Lib.build_log}")
-    os.replace(tmp, lib)
-    return lib
-
-
-def _library() -> ctypes.CDLL:
-    if _Lib.handle is None:
-        lib = ctypes.CDLL(str(build_kernels()))
-        for name in ("density", "gradient", "force", "force_gravity",
-                     "p2p_gravity"):
-            fn = getattr(lib, f"pair_flat_{name}")
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                           + [ctypes.c_float] * 4
-                           + [ctypes.POINTER(ctypes.c_float), ctypes.c_int,
-                              ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-        _Lib.handle = lib
-    return _Lib.handle
+LIBRARY = KernelLibrary("pair_flat", ("pair_flat.cu", "pair_bodies.cuh"),
+                        _bind)
 
 
 def pair_apply_kernel(launch: PairLaunch, body: PairBody) -> torch.Tensor:
@@ -446,7 +408,7 @@ def pair_apply_kernel(launch: PairLaunch, body: PairBody) -> torch.Tensor:
         raise ValueError("pair_apply_kernel: inconsistent shapes")
     if Ncol > 65535:
         raise ValueError(f"pair_apply_kernel: {Ncol} columns > 65535")
-    fn = getattr(_library(), f"pair_flat_{body.name}")
+    fn = getattr(LIBRARY.load(), f"pair_flat_{body.name}")
     out = torch.zeros((body.n_sum + body.n_max, Ncol * W), dtype=F32,
                       device=dev)
     prm = (ctypes.c_float * max(1, len(body.params)))(*body.params)

@@ -208,9 +208,11 @@ def _freqs(N: int, device):
             torch.as_tensor(kz_int, dtype=F32, device=device))
 
 
-def green_table(pm: PMMeshParams, G: float, device=None) -> torch.Tensor:
-    """The (N, N, N//2+1) green_factor grid (build once, outside the
-    step: GravitySolver holds it as a buffer)."""
+def green_table(pm: PMMeshParams, G: float,
+                device="cuda") -> torch.Tensor:
+    """The (N, N, N//2+1) green_factor grid on ``device`` (the card unless
+    the caller names another; build once, outside the step:
+    GravitySolver holds it as a buffer)."""
     k_int, kz_int = _freqs(pm.N, device)
     return green_factor(pm, G, k_int[:, None, None], k_int[None, :, None],
                         kz_int[None, None, :])

@@ -55,6 +55,9 @@ class Timeline:
         self.time_base_inv = 1.0 / self.time_base
         self.ti_current = 0
 
+    def time_of(self, ti: int) -> float:
+        return self.time_begin + ti * self.time_base
+
     # --- per-step host-side bookkeeping -------------------------------------
     def active_bins_mask(self, ti: int | None = None) -> np.ndarray:
         """(NUM_TIME_BINS+1,) bool: bin b is active at ti_current.

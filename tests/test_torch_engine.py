@@ -43,7 +43,8 @@ N1, MESH_N = 8, 32
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _setup(pkg_grid, pkg_gravity, pkg_engine, Params, cfg_kw=(), **dev):
+def _setup(pkg_grid, pkg_gravity, pkg_engine, Params, cfg_kw=(),
+           interaction_range=None, **dev):
     """bench.py:154-183 at n1=8, mesh_N=32, for either package."""
     ic = uniform_box_ic(n=N1, jitter=0.25, seed=7)
     P = Params(h_max=float(ic["h"].max() * 3))
@@ -51,7 +52,8 @@ def _setup(pkg_grid, pkg_gravity, pkg_engine, Params, cfg_kw=(), **dev):
     r_cut = gp.r_cut_ratio * gp.a_smooth * 1.0 / gp.mesh_N
     hydro_reach = float(ic["h"].max() * P.kernel.gamma * 1.25)
     grid = pkg_grid.build_columns(
-        ic["box"], interaction_range=max(hydro_reach, r_cut * 1.15),
+        ic["box"], interaction_range=(interaction_range
+                                      or max(hydro_reach, r_cut * 1.15)),
         pos=ic["pos"])
     solver = pkg_gravity.GravitySolver(gp, grid, **dev)
     cfg = pkg_engine.EngineConfig(
@@ -62,6 +64,7 @@ def _setup(pkg_grid, pkg_gravity, pkg_engine, Params, cfg_kw=(), **dev):
                             gravity_fn=solver.gas_short_range_fn(),
                             mesh_fn=solver.gas_mesh_fn(),
                             mesh_dt_scale=solver.pm.r_s, **dev)
+    eng.solver_builder = lambda g: pkg_gravity.GravitySolver(gp, g, **dev)
     eng.load_particles(ic["pos"], ic["m"], ic["v"], ic["u"], ic["h"])
     return eng, P, solver
 
@@ -237,11 +240,47 @@ def test_forced_rebucket_only_permutes_slots():
         assert _rel_max(_perpid(a, a[k]), _perpid(b, b[k])) < 1e-5, k
 
 
+def test_regrid_with_gravity_rebinds_the_solver():
+    """A grid whose columns are narrower than the smoothing-length reach
+    (but wide enough for the P2P cut-off) hits the coverage wall in
+    init_particles(): the retry re-grids to the columns a direct setup
+    builds, rebinds gravity through solver_builder, and the run then
+    matches the direct one per pid.  Without solver_builder, regrid()
+    raises and leaves the grid and state as they were."""
+    narrow, _, _ = _setup(CellGrid, port_gravity, port_engine,
+                          SPHENIXParams, interaction_range=0.18, device=CPU)
+    direct, _, _ = _setup(CellGrid, port_gravity, port_engine,
+                          SPHENIXParams, device=CPU)
+    assert narrow.grid.cdim[0] > direct.grid.cdim[0]
+    old_fns = (narrow.gravity_fn, narrow.mesh_fn)
+    runs = []
+    for eng in (narrow, direct):
+        eng.init_particles()
+        eng.run_fixed_dt(1)
+        runs.append(_np_state(eng.state))
+    assert (narrow.n_regrid_retries, narrow.n_regrids) == (1, 1)
+    assert narrow.grid.cdim == direct.grid.cdim
+    assert narrow.gravity_fn is not old_fns[0]
+    assert narrow.mesh_fn is not old_fns[1]
+    a, b = runs
+    for k in ("rho", "h", "u_full", "v_full", "a_grav", "a_grav_mesh",
+              "a_hydro"):
+        assert _rel_max(_perpid(b, b[k]), _perpid(a, a[k])) < 1e-5, k
+
+    direct.solver_builder = None
+    grid, state = direct.grid, direct.state
+    with pytest.raises(RuntimeError, match="solver_builder"):
+        direct.regrid()
+    assert direct.grid is grid and direct.state is state
+
+
 def test_port_imports_no_jax():
     code = ("import sys\n"
             "import swift_subtask_dev_tpu_torch.engine\n"
             "import swift_subtask_dev_tpu_torch.models.gravity\n"
             "import swift_subtask_dev_tpu_torch.interop\n"
+            "import swift_subtask_dev_tpu_torch.ops.pair_packed\n"
+            "import swift_subtask_dev_tpu_torch.examples.sedov\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] == 'swift_subtask_dev_tpu']\n"

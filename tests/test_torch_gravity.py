@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from swift_subtask_dev_tpu.grid import CellGrid as RefGrid
@@ -41,11 +42,19 @@ def r2():
 
 @pytest.mark.parametrize("trunc", [True, False])
 def test_force_pot_factors_match(r2, trunc):
+    """Each side gets its own f32 copy of the inputs, and the reference
+    runs jitted on the first CPU device (as its pair kernels call it), so
+    no buffer, default device or dtype that an earlier test left in the
+    process enters the comparison."""
     H_inv, r_s_inv = 1.0 / 0.0375, 1.0 / (1.25 / N_MESH)
-    Fr, Pr = ref_pg.force_pot_factors(jnp.asarray(r2), H_inv, r_s_inv,
-                                      trunc)
-    Fp, Pp = port_pg.force_pot_factors(torch.from_numpy(r2), H_inv,
-                                       r_s_inv, trunc)
+    ref = jax.jit(ref_pg.force_pot_factors, static_argnums=(1, 2, 3))
+    with jax.default_device(jax.devices("cpu")[0]):
+        Fr, Pr = ref(jnp.array(r2, dtype=jnp.float32, copy=True), H_inv,
+                     r_s_inv, trunc)
+        Fr, Pr = np.asarray(Fr), np.asarray(Pr)
+    assert Fr.dtype == Pr.dtype == np.float32
+    Fp, Pp = port_pg.force_pot_factors(
+        torch.tensor(r2, dtype=torch.float32), H_inv, r_s_inv, trunc)
     assert _rel(Fr, Fp) <= 2e-6 and _rel(Pr, Pp) <= 2e-6
 
 

@@ -168,3 +168,99 @@ def test_global_positions_match(ic, grids):
     a = ref_grid.global_positions(g_ref, off.numpy())
     b = port_grid.global_positions(g_port, off)
     assert np.array_equal(a, b)
+
+
+# --- the 27-cell grid of the packed backend (zsort=False) -------------------
+
+@pytest.fixture(scope="module")
+def sedov_grids():
+    """The Sedov example's 27-cell grid at n=10 (2,000 particles), built
+    by both packages."""
+    ic = port_ics.sedov_ic(n=10, E0=100.0)
+    rng = float(ic["h"].max() * 3.2)
+    g_ref = ref_grid.CellGrid.build_for_positions(ic["box"], rng, ic["pos"],
+                                                  headroom=2.2)
+    g_port = port_grid.CellGrid.build_for_positions(ic["box"], rng,
+                                                    ic["pos"], headroom=2.2)
+    return ic, g_ref, g_port
+
+
+def test_sedov_ic_copy_matches():
+    a = ref_ics.sedov_ic(n=6, E0=3.0)
+    b = port_ics.sedov_ic(n=6, E0=3.0)
+    for k in ("pos", "m", "h", "u", "v"):
+        assert _bits_equal(a[k], b[k]), k
+    assert a["box"] == b["box"] and a["gamma"] == b["gamma"]
+
+
+@pytest.mark.parametrize("n_part,occ", [(2000, 0.55), (54000, 0.3)])
+def test_build_and_build_for_positions_match(sedov_grids, n_part, occ):
+    ic, g_ref, g_port = sedov_grids
+    assert (g_ref.cdim, g_ref.K) == (g_port.cdim, g_port.K) == ((3, 3, 3),
+                                                                 208)
+    rng = float(ic["h"].max() * 1.825742)
+    for hr in (1.05, 1.6):
+        a = ref_grid.CellGrid.build_for_positions(ic["box"], rng, ic["pos"],
+                                                  headroom=hr)
+        b = port_grid.CellGrid.build_for_positions(ic["box"], rng,
+                                                   ic["pos"], headroom=hr)
+        assert (a.box, a.cdim, a.K) == (b.box, b.cdim, b.K)
+    a = ref_grid.CellGrid.build(ic["box"], rng, n_part, occupancy=occ)
+    b = port_grid.CellGrid.build(ic["box"], rng, n_part, occupancy=occ)
+    assert (a.box, a.cdim, a.K) == (b.box, b.cdim, b.K)
+    with pytest.raises(ValueError, match="smaller than interaction range"):
+        g_port.validate_range(0.5)
+    with pytest.raises(ValueError, match="27-stencil needs >= 3"):
+        port_grid.CellGrid((1.0, 1.0, 1.0), (2, 3, 3), 8)
+
+
+def test_linear_cell_of_wraps_like_reference(sedov_grids):
+    _, g_ref, g_port = sedov_grids
+    ijk = np.random.default_rng(3).integers(-4, 7, (50, 3)).astype(np.int32)
+    a = np.asarray(g_ref.linear_cell_of(jnp.asarray(ijk)))
+    b = g_port.linear_cell_of(torch.from_numpy(ijk)).numpy()
+    assert np.array_equal(a, b)
+
+
+def test_bucket_fields_unsorted_bit_identical(sedov_grids):
+    ic, g_ref, g_port = sedov_grids
+    f = _fields(ic)
+    out_r, mask_r, off_r, nov_r = ref_grid._bucket_fields_host(
+        g_ref, ic["pos"], f, zsort=False)
+    out_p, mask_p, off_p, nov_p = port_grid.bucket_fields(
+        g_port, ic["pos"], f, device=CPU, zsort=False)
+    assert int(nov_r) == int(nov_p) == 0
+    assert _bits_equal(mask_r, mask_p)
+    assert _bits_equal(off_r, off_p)
+    for k in f:
+        assert _bits_equal(out_r[k], out_p[k]), k
+    # input order within each cell, live slots a prefix
+    m = mask_p.numpy() > 0
+    pid = np.where(m, out_p["pid"].numpy(), 1 << 30)
+    assert np.all(np.diff(pid, axis=1)[m[:, 1:]] > 0)
+    assert np.all(m[:, :-1] | ~m[:, 1:])
+
+
+def test_rebucket_offsets_unsorted_after_drift_bit_identical(sedov_grids):
+    ic, g_ref, g_port = sedov_grids
+    f = _fields(ic)
+    out_r, mask_r, off_r, _ = ref_grid._bucket_fields_host(
+        g_ref, ic["pos"], f, zsort=False)
+    rng = np.random.default_rng(9)
+    disp = rng.normal(0.0, 0.1, np.asarray(off_r).shape).astype(np.float32)
+    off_d = np.asarray(off_r) + disp * np.asarray(mask_r)[..., None]
+    fields_np = {k: np.asarray(v) for k, v in out_r.items()}
+    ref = ref_grid.rebucket_offsets(
+        g_ref, mask_r, jnp.asarray(off_d),
+        {k: jnp.asarray(v) for k, v in fields_np.items()}, zsort=False)
+    port = port_grid.rebucket_offsets(
+        g_port, torch.from_numpy(np.asarray(mask_r).copy()),
+        torch.from_numpy(off_d), {k: torch.from_numpy(v.copy())
+                                  for k, v in fields_np.items()},
+        zsort=False)
+    assert int(ref[3]) == int(port[3]) == 0
+    assert _bits_equal(ref[1], port[1])
+    assert _bits_equal(ref[2], port[2])
+    for k in fields_np:
+        assert _bits_equal(ref[0][k], port[0][k]), k
+    assert (np.asarray(ref[0]["pid"]) != fields_np["pid"]).sum() > 100

@@ -19,7 +19,8 @@ from swift_subtask_dev_tpu_torch.grid import CellGrid
 from swift_subtask_dev_tpu_torch.ics import uniform_box_ic
 from swift_subtask_dev_tpu_torch.interop import state_from_reference
 from swift_subtask_dev_tpu_torch.models.sph.sphenix import SPHENIXParams
-from swift_subtask_dev_tpu_torch.ops import hydro_flat, pair_flat
+from swift_subtask_dev_tpu_torch.ops import (cuda_build, hydro_flat,
+                                             pair_flat)
 
 CPU = torch.device("cpu")
 GAMMA = 1.825742
@@ -155,6 +156,20 @@ def test_output_conventions_dead_and_skipped_tiles(layout):
     assert (tcounts < TPC).any()
 
 
+def test_plain_version_checks_front_packing(layout):
+    """The plain version leaves out rows past the fullest column's count,
+    which is exact only while every column's live slots are a prefix: a
+    live slot after a hole is refused."""
+    _, g_port, s = layout
+    st = state_from_reference(s, CPU)
+    n = int((st["mask"][0] > 0).sum())
+    mask = st["mask"].clone()
+    mask[0, n - 1], mask[0, n] = 0.0, 1.0       # a hole, then a live slot
+    pp = hydro_flat.density_pass({**st, "mask": mask}, SPHENIXParams())
+    with pytest.raises(ValueError, match="front-packed"):
+        pair_flat.pair_apply(g_port, pp)
+
+
 def test_p2p_passes_need_the_mesh_split_scale(layout):
     """The P2P pairs always carry the mesh's erfc truncation, so a pass
     without a split scale r_s is refused."""
@@ -170,31 +185,64 @@ def _fake_nvcc(path, version):
     return str(path)
 
 
+def check_library_key(lib, tmp_path, monkeypatch):
+    """A library's built name changes with each of its sources, with
+    NVCC_FLAGS and with the compiler's version."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for name in lib.sources:
+        (src / name).write_bytes((cuda_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(cuda_build, "CSRC", src)
+    nv1 = _fake_nvcc(tmp_path / "nvcc1", "release 12.8")
+    nv2 = _fake_nvcc(tmp_path / "nvcc2", "release 12.9")
+    base = lib.path(nv1)
+    assert base.parent == cuda_build.BUILD
+    assert base.name.startswith(f"lib{lib.name}-") and base.suffix == ".so"
+    assert lib.path(nv1) == base
+    assert lib.path(nv2) != base
+    monkeypatch.setattr(cuda_build, "NVCC_FLAGS",
+                        cuda_build.NVCC_FLAGS + ["--use_fast_math"])
+    assert lib.path(nv1) != base
+    monkeypatch.undo()
+    monkeypatch.setattr(cuda_build, "CSRC", src)
+    seen = {base}
+    for name in lib.sources:
+        (src / name).write_bytes((src / name).read_bytes() + b"\n")
+        key = lib.path(nv1)
+        assert key not in seen
+        seen.add(key)
+
+
 def test_library_key_follows_sources_flags_and_compiler(tmp_path,
                                                         monkeypatch):
     """The built library's name changes with either source file, with
     NVCC_FLAGS and with the compiler's version, so a stale binary is never
     loaded."""
-    src = tmp_path / "csrc"
-    src.mkdir()
-    for name in pair_flat._SOURCES:
-        (src / name).write_bytes((pair_flat._CSRC / name).read_bytes())
-    monkeypatch.setattr(pair_flat, "_CSRC", src)
-    nv1 = _fake_nvcc(tmp_path / "nvcc1", "release 12.8")
-    nv2 = _fake_nvcc(tmp_path / "nvcc2", "release 12.9")
-    base = pair_flat._library_path(nv1)
-    assert base.parent == pair_flat._BUILD
-    assert base.name.startswith("libpair_flat-") and base.suffix == ".so"
-    assert pair_flat._library_path(nv1) == base
-    assert pair_flat._library_path(nv2) != base
-    monkeypatch.setattr(pair_flat, "NVCC_FLAGS",
-                        pair_flat.NVCC_FLAGS + ["--use_fast_math"])
-    assert pair_flat._library_path(nv1) != base
-    monkeypatch.undo()
-    monkeypatch.setattr(pair_flat, "_CSRC", src)
-    seen = {base}
-    for name in pair_flat._SOURCES:
-        (src / name).write_bytes((src / name).read_bytes() + b"\n")
-        key = pair_flat._library_path(nv1)
-        assert key not in seen
-        seen.add(key)
+    assert pair_flat.LIBRARY.sources == ("pair_flat.cu", "pair_bodies.cuh")
+    check_library_key(pair_flat.LIBRARY, tmp_path, monkeypatch)
+
+
+def test_timebin_loop_matches_reference_exactly(layout):
+    """The limiter's timebin scan (K1's timebin body): min bin over active
+    neighbours whose own kernel reaches i, exact against the reference
+    kernel in the Pallas interpreter, with bins 0 (empty) and the
+    NBIN_SENTINEL where no active neighbour reaches."""
+    from swift_subtask_dev_tpu.models.sph.sphenix import SPHENIXParams as RP
+    from swift_subtask_dev_tpu.ops import hydro_pallas
+    g_ref, g_port, s = layout
+    rng = np.random.default_rng(17)
+    live = s["mask"] > 0
+    tb = np.where(live, rng.integers(0, 45, live.shape), 0).astype(np.int32)
+    act = (live & (rng.uniform(size=live.shape) < 0.05)).astype(np.float32)
+    sub = {"mask": s["mask"], "off": s["off"], "h": s["h"],
+           "time_bin": tb, "active": act}
+    ref = np.asarray(hydro_pallas.timebin_loop(
+        g_ref, {k: jnp.asarray(v) for k, v in sub.items()}, RP(),
+        interpret=True, engine="flat"))
+    port = hydro_flat.timebin_loop(g_port, state_from_reference(sub, CPU),
+                                   SPHENIXParams())
+    assert port.dtype == torch.int32 and ref.dtype == np.int32
+    assert np.array_equal(ref, port.numpy())
+    got = port.numpy()[live]
+    assert (got == hydro_flat.NBIN_SENTINEL).any()
+    assert (got < hydro_flat.NBIN_SENTINEL).sum() > 100

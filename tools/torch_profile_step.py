@@ -228,8 +228,7 @@ def main():
     print(card)
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
-    pair_flat.build_kernels()
-    pair_flat._library()
+    pair_flat.LIBRARY.load()
 
     torch.cuda.reset_peak_memory_stats()
     eng, _, _, n = bench_engine(N1, MESH_N, device)
