@@ -7,9 +7,11 @@ Phases (any failure ends the script with a non-zero exit and no result):
 
 1. Card: require a CUDA device; print its name and power limit
    (nvidia-smi) and the torch/CUDA versions.
-2. Build: compile the flat pair kernel (csrc/pair_flat.cu) and the packed
-   27-cell pair kernel (csrc/pair_packed.cu) with nvcc into build/, one
-   nvcc process each, started together, and load both.
+2. Build: compile the flat pair kernel (csrc/pair_flat.cu, with the cost
+   probe's bodies), the packed 27-cell pair kernel (csrc/pair_packed.cu),
+   the ring-buffer 27-cell pair kernel (csrc/pair_ring.cu) and the FP32
+   probe (csrc/vpu_peak.cu) with nvcc into build/, one nvcc process each,
+   started together, and load them all.
 3. Kernel vs plain: on the bench IC at n1=24 (27,648 particles), mesh_N=64,
    after init_particles(), run each of the five flat pair bodies through
    the CUDA kernel and through its plain torch version on the same
@@ -44,11 +46,24 @@ Phases (any failure ends the script with a non-zero exit and no result):
    body launched; then the flat bodies the path runs against their plain
    versions on its final state, the timebin body bit for bit (on the
    particles active one smallest step before the end).
-7. Prints {"kernels": [...]} (each kernel's launches on its path, errors,
-   times, and its bound: the larger of the bytes it must move -- the live
-   particles' fields, the output slots it writes and the index words it
-   reads -- over 3.35 TB/s and its FP32 operations on the run's true
-   pairs over 67 TFLOP/s) and, as the last line, the result object.
+7. Sedov blast, path C (the CLI's --hydro --limiter --backend
+   pallas_ring configuration: 27-cell grid, the ring-buffer kernel K3,
+   the limiter's 27-cell stencil.timebin_loop): the same IC and run, the
+   checks of path B (energy rule, wakes) and every K3 body launched; then
+   each K3 body's kernel against its plain version on the final state
+   (tolerances of phase 3).
+8. Probes: the FP32 probe's kernel against its plain version on the
+   reference's (256, 128) tile at 2 x 64 steps (relative tolerance
+   vpu_peak.tolerance), then its entry point (tile and full-card rates);
+   the cost probe's six synthetic bodies on the flat kernel against their
+   plain versions on the bench geometry (93,312 particles), then its
+   entry point (ms per body).  The launch counters are reset just before
+   each entry point and read just after.
+9. Prints {"kernels": [...]} (each kernel's launches on its path, errors,
+   times, and its bound: the larger of the bytes it must move -- the
+   particles' fields it reads, the output slots it writes and the index
+   words it reads -- over 3.35 TB/s and its FP32 operations on the run's
+   true pairs over 67 TFLOP/s) and, as the last line, the result object.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -65,6 +80,12 @@ FLAT_SOURCE = "swift_subtask_dev_tpu_torch/csrc/pair_flat.cu"
 FLAT_REPLACES = "swift_subtask_dev_tpu/ops/pallas_flat.py:268"
 PACKED_SOURCE = "swift_subtask_dev_tpu_torch/csrc/pair_packed.cu"
 PACKED_REPLACES = "swift_subtask_dev_tpu/ops/pallas_packed.py:48"
+RING_SOURCE = "swift_subtask_dev_tpu_torch/csrc/pair_ring.cu"
+RING_REPLACES = "swift_subtask_dev_tpu/ops/pallas_pairs.py:93"
+VPU_SOURCE = "swift_subtask_dev_tpu_torch/csrc/vpu_peak.cu"
+VPU_REPLACES = "tools/vpu_peak.py:19"
+PROBE_SOURCE = "swift_subtask_dev_tpu_torch/csrc/probe_bodies.cuh"
+PROBE_REPLACES = "tools/probe_kernel.py:26"
 
 SEDOV_N = 51            # 2 * 51^3 = 265,302 particles
 # the example's default end time: the shock radius is 0.347 (18 h of
@@ -79,7 +100,12 @@ PEAK_FP32_PER_S = 67e12
 # divide, sqrt, rsqrt and exp counts one; the separation and r2, the
 # pair mask and the accumulation into the outputs are included
 OPS_PER_PAIR = {"density": 78, "gradient": 63, "force": 167,
-                "force_gravity": 243, "p2p_gravity": 82, "timebin": 22}
+                "force_gravity": 243, "p2p_gravity": 82, "timebin": 22,
+                # the cost probe's bodies (csrc/probe_bodies.cuh): 14 for
+                # the separation and r2, 2 for the pair mask, 1 for the
+                # sum, plus each body's own
+                "probe_a00": 18, "probe_a": 18, "probe_b": 26,
+                "probe_c": 131, "probe_d": 37, "probe_e": 39}
 
 
 class PhaseFailed(RuntimeError):
@@ -110,8 +136,10 @@ def phase_card():
 
 def phase_build():
     from swift_subtask_dev_tpu_torch.ops import cuda_build, pair_flat
-    from swift_subtask_dev_tpu_torch.ops import pair_packed
-    libs = [pair_flat.LIBRARY, pair_packed.LIBRARY]
+    from swift_subtask_dev_tpu_torch.ops import pair_packed, pair_ring
+    from swift_subtask_dev_tpu_torch.probes import vpu_peak
+    libs = [pair_flat.LIBRARY, pair_packed.LIBRARY, pair_ring.LIBRARY,
+            vpu_peak.LIBRARY]
     t0 = time.perf_counter()
     paths = cuda_build.build_all(libs, force=True)
     for lib, path in zip(libs, paths):
@@ -120,7 +148,8 @@ def phase_build():
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
-    print(f"build: both libraries in {time.perf_counter() - t0:.2f} s")
+    print(f"build: {len(libs)} libraries in "
+          f"{time.perf_counter() - t0:.2f} s")
 
 
 def bench_engine(n1, mesh_N, device):
@@ -256,6 +285,7 @@ def hold_against_plain(module, launch, body, card, exact=False, reps=5):
 
 def entry(name, route_source, replaces, launches, max_abs, ms, plain_ms,
           bound_ms, bound_by):
+    """One kernel of the {"kernels": ...} line."""
     return {"name": name, "route": "cuda", "source": route_source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
@@ -283,6 +313,16 @@ def packed_work(launch):
     blk = pair_packed.BLOCK
     written = int(((counts + blk - 1) // blk * blk).clamp(max=launch.K).sum())
     return (int(counts.sum()), written, 4 * counts.numel())
+
+
+def ring_work(launch, body):
+    """Live particles, written slots and index bytes of one ring launch:
+    the kernel relies on no live count, so it reads the mask of every
+    slot (charged as index bytes) and the fields of the live ones, and
+    writes the live slots."""
+    mask = launch.Xi[body.fields.index("mask")]
+    n_live = int((mask > 0).sum())
+    return (n_live, n_live, 4 * mask.numel())
 
 
 def phase_kernel_vs_plain(device, card):
@@ -435,7 +475,8 @@ def sedov_run(backend, limiter, device, card, label):
     launches)."""
     import torch
     from swift_subtask_dev_tpu_torch.examples import sedov
-    from swift_subtask_dev_tpu_torch.ops import pair_flat, pair_packed
+    from swift_subtask_dev_tpu_torch.ops import (pair_flat, pair_packed,
+                                                 pair_ring)
     eng = sedov.make_engine(SEDOV_N, SEDOV_T_END, backend, limiter, device)
     n = int(eng.state["mask"].sum())
     print(f"{label}: {n} particles, backend {backend!r}, limiter "
@@ -446,9 +487,11 @@ def sedov_run(backend, limiter, device, card, label):
     torch.cuda.reset_peak_memory_stats()
     pair_flat.reset_launches()
     pair_packed.reset_launches()
+    pair_ring.reset_launches()
     eng, res = sedov.run_blast(SEDOV_N, SEDOV_T_END, engine=eng)
     launches = {"flat": dict(pair_flat.LAUNCHES),
-                "packed": dict(pair_packed.LAUNCHES)}
+                "packed": dict(pair_packed.LAUNCHES),
+                "ring": dict(pair_ring.LAUNCHES)}
     steps, wall = res["steps"], res["run_seconds"]
     n_act = sum(res["n_active"])
     print(f"  init_particles {res['init_seconds']:.3f} s; run({SEDOV_T_END})"
@@ -573,6 +616,104 @@ def phase_sedov_flat(device, card):
     return kernels
 
 
+def phase_sedov_ring(device, card):
+    """Path C: the 27-cell grid with the ring-buffer kernel K3 and the
+    timestep limiter (its wake scan is the 27-cell stencil.timebin_loop)."""
+    from swift_subtask_dev_tpu_torch.ops import pair_ring
+    eng, res, launches = sedov_run("pallas_ring", True, device, card,
+                                   "phase 7 (Sedov, path C)")
+    check(res["energy_drift"] < 0.05,
+          "energy drift of 5% or more (the example's rule)")
+    check(sum(res["n_woken"]) > 0, "the limiter woke no particle")
+    for name in pair_ring.KERNEL_BODIES:
+        check(launches["ring"].get(name, 0) > 0,
+              f"pair_ring_{name}: kernel never launched on path C")
+    check(not launches["packed"] and not launches["flat"],
+          f"path C launched another pair kernel: {launches}")
+    kernels = []
+    for pp in sedov_passes(eng):
+        launch, body = pair_ring.prepare(eng.grid, pp), pp.body
+        ms, plain_ms, max_abs, pairs = hold_against_plain(
+            pair_ring, launch, body, card)
+        b_ms, b_by = bound(body, ring_work(launch, body), pairs)
+        kernels.append(entry(f"pair_ring_{body.name}", RING_SOURCE,
+                             RING_REPLACES, launches["ring"][body.name],
+                             max_abs, ms, plain_ms, b_ms, b_by))
+    return kernels
+
+
+def phase_vpu_peak(device, card):
+    """T1: the FP32 probe against its plain version at 2 x 64 steps, then
+    its entry point (the launch counter reset just before)."""
+    import numpy as np
+    import torch
+    from swift_subtask_dev_tpu_torch.probes import vpu_peak
+    iters = 2
+    x = torch.as_tensor(np.random.default_rng(0).uniform(
+        0.5, 1.5, (vpu_peak.ROWS, vpu_peak.LANES)).astype(np.float32),
+        device=device)
+    out_k = vpu_peak.fma_chains_kernel(x, iters).double()
+    out_p = vpu_peak.fma_chains_plain(x, iters).double()
+    max_abs = (out_k - out_p).abs().max().item()
+    rel = ((out_k - out_p).abs() / out_p.abs()).max().item()
+    tol = vpu_peak.tolerance(iters)
+    print(f"phase 8 (probes): vpu_peak kernel vs plain at {iters} x "
+          f"{vpu_peak.INNER} steps: max relative error {rel:.3e} "
+          f"(tolerance {tol:.3e}), max abs {max_abs:.3e} [{card}]")
+    check(rel <= tol, "vpu_peak: kernel and plain version disagree")
+    torch.cuda.synchronize()
+    vpu_peak.reset_launches()
+    rates = vpu_peak.main([])
+    torch.cuda.synchronize()
+    launches = vpu_peak.LAUNCHES.get("vpu_peak", 0)
+    check(launches > 0, "vpu_peak: kernel never launched by its entry point")
+    full = rates["full"]
+    xf = torch.ones((full["rows"], vpu_peak.LANES), dtype=torch.float32,
+                    device=device)
+    _, plain_ms = time_ms(
+        lambda: vpu_peak.fma_chains_plain(xf, vpu_peak.ITERS), 1,
+        warmup=False)
+    n = xf.numel()
+    t_ops = vpu_peak.flops(n, vpu_peak.ITERS) / PEAK_FP32_PER_S
+    t_bytes = 8 * n / PEAK_BYTES_PER_S
+    print(f"  plain version at the full size: {plain_ms:.1f} ms; launches "
+          f"{launches} [{card}]")
+    return [entry("vpu_peak_fma", VPU_SOURCE, VPU_REPLACES, launches,
+                  max_abs, full["ms"], plain_ms, 1e3 * max(t_ops, t_bytes),
+                  "operations" if t_ops >= t_bytes else "bytes")]
+
+
+def phase_probe_kernel(device, card):
+    """T2: the cost probe's six bodies on the flat kernel against their
+    plain versions, then its entry point (counters reset just before)."""
+    import torch
+    from swift_subtask_dev_tpu_torch.ops import pair_flat
+    from swift_subtask_dev_tpu_torch.probes import probe_kernel
+    grid, f = probe_kernel.geometry(device=device)
+    print(f"  probe_kernel: {int((f['mask'] > 0).sum())} particles, "
+          f"{grid.cdim[0]} x {grid.cdim[1]} columns, W = {grid.K}")
+    held = {}
+    for pp in probe_kernel.probe_passes(f):
+        launch, body = pair_flat.prepare(grid, pp), pp.body
+        _, plain_ms, max_abs, pairs = hold_against_plain(
+            pair_flat, launch, body, card)
+        held[body.name] = (plain_ms, max_abs,
+                           bound(body, flat_work(launch, body), pairs))
+    torch.cuda.synchronize()
+    pair_flat.reset_launches()
+    times = probe_kernel.main([])
+    torch.cuda.synchronize()
+    launches = dict(pair_flat.LAUNCHES)
+    kernels = []
+    for name, (plain_ms, max_abs, (b_ms, b_by)) in held.items():
+        check(launches.get(name, 0) > 0,
+              f"pair_flat_{name}: kernel never launched by the probe")
+        kernels.append(entry(f"pair_flat_{name}", PROBE_SOURCE,
+                             PROBE_REPLACES, launches[name], max_abs,
+                             times[name], plain_ms, b_ms, b_by))
+    return kernels
+
+
 def main():
     try:
         card = phase_card()
@@ -586,6 +727,9 @@ def main():
         kernels = phase_main_path(device, card, bodies)
         kernels += phase_sedov_pallas(device, card)
         kernels += phase_sedov_flat(device, card)
+        kernels += phase_sedov_ring(device, card)
+        kernels += phase_vpu_peak(device, card)
+        kernels += phase_probe_kernel(device, card)
     except (PhaseFailed, ImportError, RuntimeError, ValueError,
             OSError, subprocess.SubprocessError) as e:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}",

@@ -3,7 +3,9 @@
 // Replaces: swift_subtask_dev_tpu/ops/pallas_flat.py:268 pair_apply (the
 // Pallas TPU kernel, inner `kernel` at :408) for its six bodies
 // (csrc/pair_bodies.cuh): density, gradient, force, force + gravity, P2P
-// gravity and the limiter's timebin scan.
+// gravity and the limiter's timebin scan.  The six synthetic bodies of the
+// cost probe (csrc/probe_bodies.cuh; tools/probe_kernel.py:26 main of the
+// reference) run on the same kernel through their own entries.
 //
 // What it computes: for each 128-slot i-tile of a z-sorted column and each
 // of the 9 neighbour columns, it walks exactly the j-rows named by the
@@ -37,6 +39,7 @@
 #include <stdint.h>
 
 #include "pair_bodies.cuh"
+#include "probe_bodies.cuh"
 
 namespace {
 
@@ -163,3 +166,9 @@ PAIR_FLAT_ENTRY(force, Force)
 PAIR_FLAT_ENTRY(force_gravity, ForceGravity)
 PAIR_FLAT_ENTRY(p2p_gravity, P2PGravity)
 PAIR_FLAT_ENTRY(timebin, Timebin)
+PAIR_FLAT_ENTRY(probe_a00, ProbeA00)
+PAIR_FLAT_ENTRY(probe_a, ProbeA)
+PAIR_FLAT_ENTRY(probe_b, ProbeB)
+PAIR_FLAT_ENTRY(probe_c, ProbeC)
+PAIR_FLAT_ENTRY(probe_d, ProbeD)
+PAIR_FLAT_ENTRY(probe_e, ProbeE)

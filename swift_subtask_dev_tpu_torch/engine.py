@@ -1,12 +1,14 @@
 """The engine — one-species SPHENIX (+ P3M) gas on a pair-engine grid.
 
-Port of the reference's ``engine.py`` for two backends: ``"flat"`` (the
-column grid and the flat pair kernel; the main path) and ``"pallas"`` (the
-27-cell grid and the packed pair kernel).  The same step
+Port of the reference's ``engine.py`` for three backends: ``"flat"`` (the
+column grid and the flat pair kernel; the main path), ``"pallas"`` (the
+27-cell grid and the packed pair kernel) and ``"pallas_ring"`` (the 27-cell
+grid and the ring-buffer pair kernel).  The same step
 
     drift -> trigger-based rebucket -> density + ghost -> gradient ->
     force (fused with short-range gravity on flat) -> kick2 -> timestep
-    -> kick1 -> limiter wake scan (flat, optional)
+    -> kick1 -> limiter wake scan (optional: the flat timebin body on
+    flat, the 27-cell ``stencil.timebin_loop`` on the other two)
 
 with the PM mesh on its own split timestep, and the same host/device
 split: the host owns the exact 64-bit integer timeline and hands the
@@ -21,9 +23,8 @@ A step that hits a capacity or coverage wall raises :class:`RegridNeeded`;
 live particles and retries (the step never modifies the tensors it is
 given, so the saved state is intact).
 
-Left out (see ROADMAP.md): the limiter on the pallas backend (the
-reference's XLA ``stencil.timebin_loop``), particle splitting, cosmology,
-cooling, the other backends and multi-species runs.
+Left out (see ROADMAP.md): particle splitting, cosmology, cooling, the
+xla and gather backends and multi-species runs.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from .grid.cellgrid import (CellGrid, bucket_fields, global_positions,
                             rebucket_offsets)
 from .models.sph import sphenix
 from .models.sph.sphenix import CosmoFactors, SPHENIXParams
-from .ops import hydro_flat
+from .ops import hydro_flat, stencil
 from .utils import timeline as tl
 
 F32 = torch.float32
@@ -74,7 +75,7 @@ class StepTables(NamedTuple):
 
 
 # pair engine of each backend (the reference's _loops table)
-BACKENDS = {"flat": "flat", "pallas": "packed"}
+BACKENDS = {"flat": "flat", "pallas": "packed", "pallas_ring": "ring"}
 
 
 @dataclass(frozen=True)
@@ -85,7 +86,7 @@ class EngineConfig:
     dt_min: float = 1e-17
     dt_max: float = 1e-2
     backend: str = "flat"     # 'flat' (columns, pair_flat) | 'pallas'
-    # (27-cell grid, pair_packed)
+    # (27-cell grid, pair_packed) | 'pallas_ring' (27-cell grid, pair_ring)
     with_self_gravity: bool = False
     max_ghost_iterations: int = 30
     rebucket_safety: float = 0.9  # fraction of the safe margin to use
@@ -96,7 +97,7 @@ class EngineConfig:
     # (0 -> dt_max)
     with_timestep_limiter: bool = False  # SWIFT --limiter: cap active
     # bins at min_ngb + 2 and wake inactive particles whose neighbours got
-    # fast (runner_do_limiter); flat backend only
+    # fast (runner_do_limiter)
     # occupancy re-grid: rebuild tighter when the fullest cell x 1.7 is
     # below trigger * K (<= 0 disables), at most once per cooldown steps
     regrid_shrink_trigger: float = 0.5
@@ -143,7 +144,7 @@ def _ghost_density(grid: CellGrid, p: SPHENIXParams, cosmo: CosmoFactors,
     unconverged particles (the reference's unconverged-subset loops,
     runner_ghost.c:1085): exact, because rho_i depends on h_i only, so
     skipped tiles keep valid values and mixed tiles recompute in full.  The
-    packed engine recomputes every slot each trip (the reference's
+    27-cell engines recompute every slot each trip (the reference's
     non-subset branch).  Returns (h, dens, n_iter)."""
     kroot_eps = float(np.float32(p.kernel.root) * np.float32(1.0 + 1e-5))
     subset = engine == "flat"
@@ -196,7 +197,7 @@ def _gas_loops(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
     tb = _tb_index(s["time_bin"])
     engine = BACKENDS[cfg.backend]
     # the flat engine skips i-tiles with no active particle (zeroed range
-    # words), the packed one recomputes every slot; either way the
+    # words), the 27-cell ones recompute every slot; either way the
     # active-masked merges keep the inactive particles' old values
     h_new, dens, n_ghost_iter = _ghost_density(
         grid, p, cosmo, s, active, cfg.max_ghost_iterations, engine)
@@ -336,7 +337,10 @@ def _gas_kdk(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
     if cfg.with_timestep_limiter:
         sub = {"mask": s["mask"], "off": s["off"], "h": s["h"],
                "time_bin": s["time_bin"], "active": active.to(F32)}
-        mnb = hydro_flat.timebin_loop(grid, sub, p)
+        if cfg.backend == "flat":
+            mnb = hydro_flat.timebin_loop(grid, sub, p)
+        else:
+            mnb = stencil.timebin_loop(grid, sub, p)
         wake = (mask_b & ~active & (s["time_bin"] > 0)
                 & (s["time_bin"] > mnb + 2))
         tb_now = _tb_index(s["time_bin"]).to(I32)
@@ -524,10 +528,6 @@ class Engine:
         if cfg.backend not in BACKENDS:
             raise ValueError(f"backend {cfg.backend!r} is not ported "
                              f"(have {sorted(BACKENDS)})")
-        if cfg.with_timestep_limiter and cfg.backend != "flat":
-            raise NotImplementedError(
-                "the timestep limiter on the pallas backend (the "
-                "reference's stencil.timebin_loop) is not ported")
         self.device = torch.device(device)
         self.grid = grid
         self.sph = sph

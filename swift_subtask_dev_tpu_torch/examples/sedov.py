@@ -2,7 +2,7 @@
 SWIFT's HydroTests/SedovBlast_3D).
 
     python -m swift_subtask_dev_tpu_torch.examples.sedov [--n 32]
-        [--tend 0.05] [--cpu] [--backend pallas]
+        [--tend 0.05] [--cpu] [--backend pallas|pallas_ring] [--limiter]
 
 Point-like energy injection into a uniform medium; the blast radius
 follows r_sh = 1.15167 (E t^2 / rho)^(1/5).  PASS when the shock radius
@@ -10,10 +10,12 @@ follows r_sh = 1.15167 (E t^2 / rho)^(1/5).  PASS when the shock radius
 10% of it and the total energy drifts by less than 5%.  Runs on the card
 unless ``--cpu`` is given.
 
-``run_blast`` is the same run as a function, for either port backend:
-``"pallas"`` (the example's 27-cell grid, packed pair kernel) or
-``"flat"`` (column grid, flat pair kernel; with the timestep limiter, as
-the reference's CLI offers it).
+``--limiter`` turns on the timestep limiter (SWIFT's ``--limiter``, with
+which SWIFT runs SedovBlast_3D).  ``run_blast`` is the same run as a
+function, for any port backend: ``"pallas"`` (the example's 27-cell
+grid, packed pair kernel), ``"pallas_ring"`` (the same grid, ring-buffer
+pair kernel; the reference CLI's ``--backend pallas_ring``) or ``"flat"``
+(column grid, flat pair kernel), each with or without the limiter.
 """
 
 from __future__ import annotations
@@ -117,12 +119,16 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=32)
     ap.add_argument("--tend", type=float, default=0.05)
     ap.add_argument("--cpu", action="store_true")
-    ap.add_argument("--backend", default="pallas", choices=["pallas"])
+    ap.add_argument("--backend", default="pallas",
+                    choices=["pallas", "pallas_ring"])
+    ap.add_argument("--limiter", action="store_true")
     args = ap.parse_args(argv)
     device = "cpu" if args.cpu else "cuda"
-    eng = make_engine(args.n, args.tend, args.backend, device=device)
+    eng = make_engine(args.n, args.tend, args.backend, args.limiter,
+                      device=device)
     print(f"N = {int(eng.state['mask'].sum())}")
     print(f"grid: {eng.grid.cdim} K={eng.grid.K} h_max={eng.sph.h_max:.3f}")
+    print(f"backend {args.backend}, limiter {args.limiter}")
     eng, res = run_blast(args.n, args.tend, engine=eng)
     print(f"{res['steps']} steps in {res['run_seconds']:.1f}s; "
           f"t={res['t']:.4f}; re-grids {res['n_regrids']}")

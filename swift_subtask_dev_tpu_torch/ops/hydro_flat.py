@@ -1,16 +1,17 @@
 """SPHENIX hydro, P2P gravity and limiter loops on the pair engines.
 
 Port of the reference's ``ops/hydro_pallas.py``: density, gradient and
-force on either pair engine (``engine="flat"``: the column/z-sorted
-``pair_flat``; ``engine="packed"``: the 27-cell ``pair_packed``, as the
+force on any of the three pair engines (``engine="flat"``: the
+column/z-sorted ``pair_flat``; ``engine="packed"``: the 27-cell
+``pair_packed``; ``engine="ring"``: the 27-cell ``pair_ring``, as the
 reference's ``ENGINES`` table), and fused force + short-range gravity, P2P
 gravity and the limiter's timebin scan on the flat engine.  Each loop
 builds a :class:`~.pair_flat.PairPass` — the (C, K) field tiles in the
 body's field order, the body's constants and its plain torch callback —
 and runs it through the engine's ``pair_apply`` (the CUDA kernel on the
 card, the plain version on the CPU).  ``active_i`` (skip i-tiles with no
-active particle) applies to the flat engine only; the packed engine
-recomputes every slot, as the reference's does.
+active particle) applies to the flat engine only; the 27-cell engines
+recompute every slot, as the reference's do.
 
 Conventions kept from the reference: padded slots hold division-safe
 fills (``_san``: h, m, rho, P = 1); the gravity mass is ``m * mask``; the
@@ -30,7 +31,7 @@ from ..models.sph import sphenix
 from ..models.sph.kernels import CUBIC_SPLINE
 from ..models.sph.sphenix import CosmoFactors, SPHENIXParams
 from . import p2p_gravity as pg
-from . import pair_flat, pair_packed
+from . import pair_flat, pair_packed, pair_ring
 from .pair_flat import PairBody, PairPass
 from .stencil import NBIN_SENTINEL
 
@@ -47,7 +48,7 @@ FORCE_GRAVITY_FIELDS = FORCE_FIELDS + ("gm",)
 P2P_FIELDS = _COMMON + ("h", "m")
 TIMEBIN_FIELDS = _COMMON + ("h", "tb", "act")
 
-ENGINES = ("flat", "packed")
+ENGINES = ("flat", "packed", "ring")
 
 
 def _apply(engine: str, grid: CellGrid, pp: PairPass, active_i=None):
@@ -56,6 +57,8 @@ def _apply(engine: str, grid: CellGrid, pp: PairPass, active_i=None):
         return pair_flat.pair_apply(grid, pp, active_i)
     if engine == "packed":
         return pair_packed.pair_apply(grid, pp)
+    if engine == "ring":
+        return pair_ring.pair_apply(grid, pp)
     raise ValueError(f"unknown pair engine {engine!r} (have {ENGINES})")
 
 

@@ -370,10 +370,14 @@ def pair_apply_plain(launch: PairLaunch, body: PairBody,
 
 BODY_NAMES = ("density", "gradient", "force", "force_gravity", "p2p_gravity",
               "timebin")
+# the cost probe's synthetic bodies (csrc/probe_bodies.cuh,
+# probes/probe_kernel.py)
+PROBE_BODY_NAMES = ("probe_a00", "probe_a", "probe_b", "probe_c", "probe_d",
+                    "probe_e")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    for name in BODY_NAMES:
+    for name in BODY_NAMES + PROBE_BODY_NAMES:
         fn = getattr(lib, f"pair_flat_{name}")
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                        + [ctypes.c_float] * 4
@@ -382,8 +386,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
 
 
-LIBRARY = KernelLibrary("pair_flat", ("pair_flat.cu", "pair_bodies.cuh"),
-                        _bind)
+LIBRARY = KernelLibrary("pair_flat", ("pair_flat.cu", "pair_bodies.cuh",
+                                     "probe_bodies.cuh"), _bind)
 
 
 def pair_apply_kernel(launch: PairLaunch, body: PairBody) -> torch.Tensor:

@@ -98,13 +98,14 @@ def pair_apply(grid: CellGrid, pp: PairPass):
             [res[body.n_sum + q] for q in range(body.n_max)])
 
 
-def nbr_cell_table(cdim) -> np.ndarray:
-    """(C, 27) linear ids of each cell's stencil cells, STENCIL_27 order."""
+def nbr_cell_table(cdim, offsets=STENCIL_27) -> np.ndarray:
+    """(C, 27) linear ids of each cell's stencil cells (periodic wrap), in
+    the order of ``offsets``."""
     ncx, ncy, ncz = cdim
     ids = np.arange(ncx * ncy * ncz)
     ix, iy, iz = ids // (ncy * ncz), (ids // ncz) % ncy, ids % ncz
     out = np.empty((len(ids), 27), np.int64)
-    for o, (dx, dy, dz) in enumerate(STENCIL_27):
+    for o, (dx, dy, dz) in enumerate(offsets):
         out[:, o] = (((ix + dx) % ncx) * ncy + (iy + dy) % ncy) * ncz \
             + (iz + dz) % ncz
     return out
