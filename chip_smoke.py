@@ -11,12 +11,18 @@ Phases (any failure ends the script with a non-zero exit and no result):
    probe's bodies), the packed 27-cell pair kernel (csrc/pair_packed.cu),
    the ring-buffer 27-cell pair kernel (csrc/pair_ring.cu) and the FP32
    probe (csrc/vpu_peak.cu) with nvcc into build/, one nvcc process each,
-   started together, and load them all.
+   started together, and load them all.  For each entry of the flat
+   kernel print its registers, spills (ptxas), local memory, shared
+   memory per block and resident blocks per SM.
 3. Kernel vs plain: on the bench IC at n1=24 (27,648 particles), mesh_N=64,
    after init_particles(), run each of the five flat pair bodies through
    the CUDA kernel and through its plain torch version on the same
    tensors: sums within 1e-5 of max |plain|, maxes equal to 1e-6
-   relative.  Both are timed with CUDA events.
+   relative.  Both are timed with CUDA events.  The pairs each warp of
+   the kernel evaluates (its walk statistics) equal the plain version's
+   accepted pairs over the slots the warp walks (``pair_flat.warp_pairs``):
+   its filter drops no accepted pair and it evaluates no other; a launch
+   with statistics gives the same bits.  So does every later flat hold.
 4. Main path at full size: bench.py's default geometry (2*80^3 =
    1,024,000 particles, mesh_N=192): init_particles() + run_fixed_dt(8)
    with every kernel launch counter reset just before.  Checks: finite
@@ -25,7 +31,10 @@ Phases (any failure ends the script with a non-zero exit and no result):
    engine's h), and the mean neighbour count against the ghost's target
    (which a wrong h would miss).  Then each body's kernel against its
    plain version once more, on the final state at the main path's
-   shapes, with the tolerances of phase 3.
+   shapes, with the tolerances of phase 3, its walk statistics and lane
+   utilisation (accepted pairs over 32 lanes x rounds) and, for
+   force+gravity and density, two launches on the same inputs that must
+   give the same bits.
 5. Sedov blast, path A (the example's configuration: 27-cell grid,
    backend "pallas", the packed kernel K2, no timestep limiter): the
    port's example at n = 51 (2*51^3 = 265,302 particles, dt_max = 1e-3),
@@ -134,7 +143,38 @@ def phase_card():
     return card
 
 
-def phase_build():
+# the flat kernel's body structs (csrc/pair_bodies.cuh, probe_bodies.cuh)
+FLAT_STRUCTS = {"Density": "density", "Gradient": "gradient",
+                "Force": "force", "ForceGravity": "force_gravity",
+                "P2PGravity": "p2p_gravity", "Timebin": "timebin",
+                "ProbeA00": "probe_a00", "ProbeA": "probe_a",
+                "ProbeB": "probe_b", "ProbeC": "probe_c",
+                "ProbeD": "probe_d", "ProbeE": "probe_e"}
+
+
+def ptxas_spills(log):
+    """{body name: ptxas's stack/spill line} of the flat kernel's
+    production instantiations (a mangled name holds the body and the
+    statistics flag: pair_flat_kernelI<length><struct>Lb0)."""
+    import re
+    out, body = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"pair_flat_kernelI(\d+)", m.group(1))
+            body = None
+            if k:
+                rest = m.group(1)[k.end():]
+                n = int(k.group(1))
+                if rest[n:].startswith("Lb0"):
+                    body = FLAT_STRUCTS.get(rest[:n])
+        elif body and "spill stores" in line:
+            out[body] = line.strip()
+            body = None
+    return out
+
+
+def phase_build(card):
     from swift_subtask_dev_tpu_torch.ops import cuda_build, pair_flat
     from swift_subtask_dev_tpu_torch.ops import pair_packed, pair_ring
     from swift_subtask_dev_tpu_torch.probes import vpu_peak
@@ -145,11 +185,23 @@ def phase_build():
     for lib, path in zip(libs, paths):
         lib.load()
         print(f"build: nvcc {lib.build_seconds:.2f} s -> {path}")
-        for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+        if lib is not pair_flat.LIBRARY:
+            for line in lib.build_log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print("  ptxas:", line.strip())
     print(f"build: {len(libs)} libraries in "
           f"{time.perf_counter() - t0:.2f} s")
+    spills = ptxas_spills(pair_flat.LIBRARY.build_log)
+    print(f"flat kernel entries [{card}]:")
+    for name in pair_flat.BODY_NAMES + pair_flat.PROBE_BODY_NAMES:
+        a = pair_flat.kernel_attributes(name)
+        print(f"  pair_flat_{name}: {a['registers']} registers, "
+              f"{a['local_bytes']} local bytes/thread, shared "
+              f"{a['static_smem']} static + {a['dynamic_smem']} dynamic "
+              f"bytes/block, {a['blocks_per_sm']} blocks/SM, window "
+              f"{a['window']} rows, {a['stages']} stages of "
+              f"{a['chunk_rows']} rows; ptxas: "
+              f"{spills.get(name, 'not found')}")
 
 
 def bench_engine(n1, mesh_N, device):
@@ -259,7 +311,8 @@ def bound(body, work, pairs):
 
 def hold_against_plain(module, launch, body, card, exact=False, reps=5):
     """Kernel vs plain version on one launch: times (CUDA events), the
-    comparison, and the true pairs the plain version counts."""
+    comparison, and the true pairs the plain version counts; for the flat
+    kernel also its walk (``hold_walk``)."""
     import torch
     out_k, ms = time_ms(lambda: module.pair_apply_kernel(launch, body),
                         reps)
@@ -273,13 +326,16 @@ def hold_against_plain(module, launch, body, card, exact=False, reps=5):
         errs = [0.0 if ok else float("inf")]
     else:
         ok, max_abs, errs = compare(out_k, out_p, body)
-    del out_k, out_p
+    del out_p
     print(f"  {body.name:14s} ok={ok} max_abs_err={max_abs:.3e} "
           f"rel_errs={[float(f'{e:.2e}') for e in errs]} kernel "
           f"{ms:.4f} ms plain {plain_ms:.1f} ms true pairs "
           f"{stats['pairs']} [{card}]")
     check(ok, f"{body.name}: kernel and plain version disagree"
           + (" (must be bit-identical)" if exact else ""))
+    if module.__name__.endswith(".pair_flat"):
+        hold_walk(launch, body, out_k, stats, card)
+    del out_k
     return ms, plain_ms, max_abs, stats["pairs"]
 
 
@@ -337,15 +393,40 @@ def phase_kernel_vs_plain(device, card):
         body = pp.body
         out_k, ms = time_ms(
             lambda: pair_flat.pair_apply_kernel(launch, body), 20)
+        stats = {}
         out_p, plain_ms = time_ms(
-            lambda: pair_flat.pair_apply_plain(launch, body), 3)
+            lambda: pair_flat.pair_apply_plain(launch, body, stats), 3)
         ok, max_abs, errs = compare(out_k, out_p, body)
         print(f"  {body.name:14s} ok={ok} max_abs_err={max_abs:.3e} "
               f"rel_errs={[float(f'{e:.2e}') for e in errs]} "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms [{card}]")
         check(ok, f"{body.name}: kernel and plain version disagree")
+        hold_walk(launch, body, out_k, stats, card)
         results[body.name] = ms
     return results
+
+
+def hold_walk(launch, body, out_k, plain_stats, card):
+    """The flat kernel's walk on one launch: a launch with statistics
+    gives ``out_k``'s bits, and the pairs each warp evaluates equal the
+    plain version's accepted pairs over the slots that warp walks, so its
+    filter drops no accepted pair and it evaluates no other.  Prints the
+    walk's totals and lane utilisation."""
+    import torch
+    from swift_subtask_dev_tpu_torch.ops import pair_flat
+    st = {}
+    out_s = pair_flat.pair_apply_kernel(launch, body, st)
+    walk = st["walk"].long()
+    got = walk[..., pair_flat.WALK_STATS.index("pairs")]
+    want = pair_flat.warp_pairs(launch, body, plain_stats["slot_pairs"])
+    same = bool(torch.equal(got, want))
+    print(f"    walk: {pair_flat.walk_summary(walk)}; pairs per warp "
+          f"{'equal to' if same else 'DIFFERENT from'} the plain "
+          f"version's [{card}]")
+    check(same, f"{body.name}: the kernel's pairs per warp differ from "
+          "the plain version's")
+    check(torch.equal(out_s, out_k), f"{body.name}: a launch with walk "
+          "statistics gave other outputs")
 
 
 def brute_density(eng, P, n_sample=1024, seed=0):
@@ -460,6 +541,13 @@ def phase_main_path(device, card, bodies):
         launch, body = pair_flat.prepare(eng.grid, pp), pp.body
         ms, plain_ms, max_abs, pairs = hold_against_plain(
             pair_flat, launch, body, card)
+        if body.name in ("force_gravity", "density"):
+            same = bool(torch.equal(
+                pair_flat.pair_apply_kernel(launch, body),
+                pair_flat.pair_apply_kernel(launch, body)))
+            print(f"    two launches on the same inputs: "
+                  f"{'bit-identical' if same else 'DIFFER'}")
+            check(same, f"{body.name}: two launches gave other bits")
         b_ms, b_by = bound(body, flat_work(launch, body), pairs)
         kernels.append(entry(f"pair_flat_{body.name}", FLAT_SOURCE,
                              FLAT_REPLACES, launches[body.name], max_abs,
@@ -722,7 +810,7 @@ def main():
         device = torch.device("cuda", 0)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        phase_build()
+        phase_build(card)
         bodies = phase_kernel_vs_plain(device, card)
         kernels = phase_main_path(device, card, bodies)
         kernels += phase_sedov_pallas(device, card)

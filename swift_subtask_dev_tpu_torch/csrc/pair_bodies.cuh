@@ -11,6 +11,14 @@
 // A body is a struct with
 //   F, NS, NM        field count, sum outputs, max outputs
 //   eval(si, nj, dx, dy, dz, r2, prm, sums, maxes) -> ok_extra
+//   in_range(si, nj, r2, prm)  the same ok_extra alone (eval returns it)
+//   lane_reach2(si, prm), row_reach2(nj, prm)
+//                    bounds on the r2 that in_range accepts: it accepts
+//                    no pair with r2 above max(lane_reach2 of any i slot
+//                    of a set, row_reach2 of the j row), and no pair at
+//                    all with a j row whose row_reach2 is negative
+//                    (the flat kernel's warp filter, ops/pair_flat.py
+//                    REACH2)
 // si: the i slot's F fields (registers); nj: the j row's F fields (shared
 // memory).  Field indices follow the body's field tuple in
 // ops/hydro_flat.py; parameter indices follow PairBody.params.
@@ -97,11 +105,23 @@ __device__ __forceinline__ void force_pot_factors(float r2, float H_inv,
 struct Density {
   static constexpr int F = 10, NS = 8, NM = 0, NP = 4;
   enum { V0 = 4, H = 7, HINV = 8, M = 9 };
+  static __device__ __forceinline__ bool in_range(
+      const float* si, const float*, float r2, const BodyParams& p) {
+    const float h_i = si[H];
+    return r2 < p.v[P_GAMMA2] * h_i * h_i;
+  }
+  static __device__ __forceinline__ float lane_reach2(
+      const float* si, const BodyParams& p) {
+    return p.v[P_GAMMA2] * si[H] * si[H];
+  }
+  static __device__ __forceinline__ float row_reach2(const float*,
+                                                     const BodyParams&) {
+    return 0.f;
+  }
   static __device__ __forceinline__ bool eval(
       const float* si, const float* nj, float dx0, float dx1, float dx2,
       float r2, const BodyParams& p, float* sums, float*) {
-    const float h_i = si[H];
-    const bool ok = r2 < p.v[P_GAMMA2] * h_i * h_i;
+    const bool ok = in_range(si, nj, r2, p);
     const float dv0 = si[V0] - nj[V0];
     const float dv1 = si[V0 + 1] - nj[V0 + 1];
     const float dv2 = si[V0 + 2] - nj[V0 + 2];
@@ -137,11 +157,23 @@ struct Gradient {
   static constexpr int F = 14, NS = 1, NM = 2, NP = 6;
   enum { V0 = 4, H = 7, HINV = 8, M = 9, U = 10, RHOINV = 11, CS = 12,
          AV = 13 };
+  static __device__ __forceinline__ bool in_range(
+      const float* si, const float*, float r2, const BodyParams& p) {
+    const float h_i = si[H];
+    return r2 < p.v[P_GAMMA2] * h_i * h_i;
+  }
+  static __device__ __forceinline__ float lane_reach2(
+      const float* si, const BodyParams& p) {
+    return p.v[P_GAMMA2] * si[H] * si[H];
+  }
+  static __device__ __forceinline__ float row_reach2(const float*,
+                                                     const BodyParams&) {
+    return 0.f;
+  }
   static __device__ __forceinline__ bool eval(
       const float* si, const float* nj, float dx0, float dx1, float dx2,
       float r2, const BodyParams& p, float* sums, float* maxes) {
-    const float h_i = si[H];
-    const bool ok = r2 < p.v[P_GAMMA2] * h_i * h_i;
+    const bool ok = in_range(si, nj, r2, p);
     const float dv0 = si[V0] - nj[V0];
     const float dv1 = si[V0 + 1] - nj[V0 + 1];
     const float dv2 = si[V0 + 2] - nj[V0 + 2];
@@ -181,6 +213,12 @@ __device__ __forceinline__ bool hydro_ok(const float* si, const float* nj,
                                          float r2, const BodyParams& p) {
   const float hm = fmaxf(si[FH], nj[FH]);
   return r2 < p.v[P_GAMMA2] * (hm * hm);
+}
+
+// hydro_ok's r2 bound from one side's h
+__device__ __forceinline__ float hydro_reach2(const float* s,
+                                              const BodyParams& p) {
+  return p.v[P_GAMMA2] * s[FH] * s[FH];
 }
 
 __device__ __forceinline__ ForceTerms force_terms(
@@ -261,10 +299,22 @@ __device__ __forceinline__ ForceTerms force_terms(
 // ---------------------------------------------------------------------------
 struct Force {
   static constexpr int F = 22, NS = 5, NM = 2, NP = 6;
+  static __device__ __forceinline__ bool in_range(
+      const float* si, const float* nj, float r2, const BodyParams& p) {
+    return hydro_ok(si, nj, r2, p);
+  }
+  static __device__ __forceinline__ float lane_reach2(
+      const float* si, const BodyParams& p) {
+    return hydro_reach2(si, p);
+  }
+  static __device__ __forceinline__ float row_reach2(const float* nj,
+                                                     const BodyParams& p) {
+    return hydro_reach2(nj, p);
+  }
   static __device__ __forceinline__ bool eval(
       const float* si, const float* nj, float dx0, float dx1, float dx2,
       float r2, const BodyParams& p, float* sums, float* maxes) {
-    const bool ok = hydro_ok(si, nj, r2, p);
+    const bool ok = in_range(si, nj, r2, p);
     const ForceTerms t = force_terms(si, nj, dx0, dx1, dx2, r2, p);
     sums[0] = t.a0;
     sums[1] = t.a1;
@@ -289,6 +339,18 @@ constexpr int P_RCUT2 = 6, P_HINV = 7, P_H3INV = 8, P_RSINV = 9, P_G = 10;
 struct ForceGravity {
   static constexpr int F = 23, NS = 9, NM = 2, NP = 11;
   enum { GM = 22 };
+  static __device__ __forceinline__ bool in_range(
+      const float* si, const float* nj, float r2, const BodyParams& p) {
+    return hydro_ok(si, nj, r2, p) || r2 < p.v[P_RCUT2];
+  }
+  static __device__ __forceinline__ float lane_reach2(
+      const float* si, const BodyParams& p) {
+    return hydro_reach2(si, p);
+  }
+  static __device__ __forceinline__ float row_reach2(const float* nj,
+                                                     const BodyParams& p) {
+    return fmaxf(hydro_reach2(nj, p), p.v[P_RCUT2]);
+  }
   static __device__ __forceinline__ bool eval(
       const float* si, const float* nj, float dx0, float dx1, float dx2,
       float r2, const BodyParams& p, float* sums, float* maxes) {
@@ -324,10 +386,22 @@ struct ForceGravity {
 struct P2PGravity {
   static constexpr int F = 6, NS = 4, NM = 0, NP = 5;
   enum { M = 5 };
+  static __device__ __forceinline__ bool in_range(
+      const float*, const float*, float r2, const BodyParams& p) {
+    return r2 < p.v[0];
+  }
+  static __device__ __forceinline__ float lane_reach2(const float*,
+                                                      const BodyParams&) {
+    return 0.f;
+  }
+  static __device__ __forceinline__ float row_reach2(const float*,
+                                                     const BodyParams& p) {
+    return p.v[0];
+  }
   static __device__ __forceinline__ bool eval(
       const float* si, const float* nj, float dx0, float dx1, float dx2,
       float r2, const BodyParams& p, float* sums, float*) {
-    const bool ok = r2 < p.v[0];
+    const bool ok = in_range(si, nj, r2, p);
     float Fg, Pg;
     force_pot_factors(r2, p.v[1], p.v[2], p.v[3], Fg, Pg);
     const float gm = p.v[4] * nj[M];
@@ -348,12 +422,27 @@ struct P2PGravity {
 struct Timebin {
   static constexpr int F = 7, NS = 0, NM = 1, NP = 1;
   enum { H = 4, TB = 5, ACT = 6 };
-  static __device__ __forceinline__ bool eval(
-      const float*, const float* nj, float, float, float, float r2,
-      const BodyParams& p, float*, float* maxes) {
+  static __device__ __forceinline__ bool in_range(
+      const float*, const float* nj, float r2, const BodyParams& p) {
     const float h_j = nj[H];
+    return (nj[ACT] > 0.f) && (r2 < p.v[P_GAMMA2] * h_j * h_j)
+        && (nj[TB] > 0.f);
+  }
+  static __device__ __forceinline__ float lane_reach2(const float*,
+                                                      const BodyParams&) {
+    return 0.f;
+  }
+  // rows of inactive or binless j are accepted by no slot
+  static __device__ __forceinline__ float row_reach2(const float* nj,
+                                                     const BodyParams& p) {
+    return (nj[ACT] > 0.f && nj[TB] > 0.f)
+        ? p.v[P_GAMMA2] * nj[H] * nj[H] : -1.f;
+  }
+  static __device__ __forceinline__ bool eval(
+      const float* si, const float* nj, float, float, float, float r2,
+      const BodyParams& p, float*, float* maxes) {
     const float tb = nj[TB];
     maxes[0] = tb > 0.f ? -tb : FL(-64.0);
-    return (nj[ACT] > 0.f) && (r2 < p.v[P_GAMMA2] * h_j * h_j) && (tb > 0.f);
+    return in_range(si, nj, r2, p);
   }
 };

@@ -20,9 +20,40 @@
 
 constexpr int PR_H = 4, PR_M = 5, PR_X0 = 6;
 
+// the pair range of bodies A-E (r2 < R2_CUT), as the flat kernel's warp
+// filter bounds it (csrc/pair_bodies.cuh: in_range, lane_reach2,
+// row_reach2)
+struct ProbeCut {
+  static __device__ __forceinline__ bool in_range(
+      const float*, const float*, float r2, const BodyParams&) {
+    return r2 < FL(0.0036);
+  }
+  static __device__ __forceinline__ float lane_reach2(const float*,
+                                                      const BodyParams&) {
+    return FL(0.0036);
+  }
+  static __device__ __forceinline__ float row_reach2(const float*,
+                                                     const BodyParams&) {
+    return 0.f;
+  }
+};
+
 // A00: walk only -- every candidate accepted, r2 summed
 struct ProbeA00 {
   static constexpr int F = 6, NS = 1, NM = 0, NP = 0;
+  static __device__ __forceinline__ bool in_range(
+      const float*, const float*, float r2, const BodyParams&) {
+    return r2 > -1.f;
+  }
+  // every pair is in range: the filter keeps every live row
+  static __device__ __forceinline__ float lane_reach2(const float*,
+                                                      const BodyParams&) {
+    return INFINITY;
+  }
+  static __device__ __forceinline__ float row_reach2(const float*,
+                                                     const BodyParams&) {
+    return 0.f;
+  }
   static __device__ __forceinline__ bool eval(
       const float*, const float*, float, float, float, float r2,
       const BodyParams&, float* sums, float*) {
@@ -32,7 +63,7 @@ struct ProbeA00 {
 };
 
 // A: walk + one j field
-struct ProbeA {
+struct ProbeA : ProbeCut {
   static constexpr int F = 6, NS = 1, NM = 0, NP = 0;
   static __device__ __forceinline__ bool eval(
       const float*, const float* nj, float, float, float, float r2,
@@ -43,7 +74,7 @@ struct ProbeA {
 };
 
 // B: walk + nine j fields, one sum
-struct ProbeB {
+struct ProbeB : ProbeCut {
   static constexpr int F = 14, NS = 1, NM = 0, NP = 0;
   static __device__ __forceinline__ bool eval(
       const float*, const float* nj, float, float, float, float r2,
@@ -58,7 +89,7 @@ struct ProbeB {
 
 // C: B's fields + 56 multiply-adds (two roundings each, as the plain
 // version: the library is built with -fmad=false)
-struct ProbeC {
+struct ProbeC : ProbeCut {
   static constexpr int F = 14, NS = 1, NM = 0, NP = 0;
   static __device__ __forceinline__ bool eval(
       const float* si, const float* nj, float, float, float, float r2,
@@ -78,7 +109,7 @@ struct ProbeC {
 
 // D: the fused force pass's transcendental chain per pair: 2 rsqrt, a
 // divide, a sqrt and an exp
-struct ProbeD {
+struct ProbeD : ProbeCut {
   static constexpr int F = 14, NS = 1, NM = 0, NP = 0;
   static __device__ __forceinline__ bool eval(
       const float* si, const float* nj, float, float, float, float r2,
@@ -95,7 +126,7 @@ struct ProbeD {
 };
 
 // E: D with an approximate reciprocal and an rsqrt-composed sqrt
-struct ProbeE {
+struct ProbeE : ProbeCut {
   static constexpr int F = 14, NS = 1, NM = 0, NP = 0;
   static __device__ __forceinline__ bool eval(
       const float* si, const float* nj, float, float, float, float r2,

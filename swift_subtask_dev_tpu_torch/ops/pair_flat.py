@@ -16,6 +16,16 @@ the reference.  ``pair_apply`` runs the hand-written CUDA kernel
 tensors; there is no other path.  Output conventions follow the reference
 kernel: dead tiles (at or past ceil(count/128) of their column) read 0 in
 every output, live tiles with no accepted pair read 0 (sums) / -inf (maxes).
+
+The kernel evaluates a body only on the pairs it accepts: each warp keeps
+the staged rows that some of its 32 slots may accept (a box around the
+slots and the body's reach bounds, ``REACH2``), every lane tests the kept
+rows with the body's predicate, and the warp then evaluates the body in
+rounds of one accepted pair per lane, each lane in j-row order.  On
+request the kernel returns per-warp statistics of its walk; their pair
+counts equal the plain version's per-slot counts summed over the slots
+each warp walks (``warp_pairs``).  ``walk_filter`` is the plain model of
+the warp filter alone.
 """
 
 from __future__ import annotations
@@ -40,6 +50,15 @@ OFFSETS_9 = [(0, 0)] + [(dx, dy)
                         if not (dx == 0 and dy == 0)]
 LANES = 128      # i-tile width (one CUDA thread per i slot)
 GRAN = 16        # range-word granularity in j-rows
+# the kernel's walk (csrc/pair_flat.cu; kernel_attributes() reads them back)
+WARPS = LANES // 32
+# per warp: rows staged, rows kept (accepted by some slot of the warp),
+# rounds, accepted pairs; then clock64 cycles waiting for staged chunks, in
+# rounds, in the representative empty slot's rows, and in the whole walk
+WALK_STATS = ("staged", "kept", "rounds", "pairs", "wait_cycles",
+              "round_cycles", "rep_cycles", "walk_cycles")
+REACH_SLACK = 1.0001     # the warp filter's slack on r2 bounds ...
+BOX_SLACK = 1e-5         # ... and on distances, x (boxz + ex + ey)
 # plain version: pair evaluations per column chunk (bounds its memory)
 _PLAIN_PAIRS = {"cpu": 1 << 20, "cuda": 1 << 24}
 
@@ -279,7 +298,9 @@ def pair_apply_plain(launch: PairLaunch, body: PairBody,
     rows are empty.  Chunked over columns to bound memory.
 
     ``stats``, when given, receives ``"pairs"``: the accepted pairs whose i
-    slot is live (the work the pass needs, for a roofline bound)."""
+    slot is live (the work the pass needs, for a roofline bound), and
+    ``"slot_pairs"``: (Ncol*W,) int64, the accepted pairs of every i slot
+    of a live tile, empty ones included."""
     L = launch
     dev = L.Xi.device
     Ncol, W = L.ncx * L.ncy, L.W
@@ -298,16 +319,18 @@ def pair_apply_plain(launch: PairLaunch, body: PairBody,
     TPC = int(L.tcounts.max()) if Ncol else 0     # live tiles of any column
     out = torch.zeros((n_out, Ncol, W // LANES, LANES), dtype=F32,
                       device=dev)
+    slot_pairs = torch.zeros((Ncol, W // LANES, LANES), dtype=torch.int64,
+                             device=dev)
     if Wj == 0 or TPC == 0:
         if stats is not None:
             stats["pairs"] = 0
+            stats["slot_pairs"] = slot_pairs.reshape(Ncol * W)
         return out.reshape(n_out, Ncol * W)
     xi_all = L.Xi.reshape(F, Ncol, W // LANES, LANES, 1)[:, :, :TPC]
     xa_all = L.Xa.reshape(Ncol, W, F)[:, :Wj]
     rows = rows[:Wj]
     inv_boxz = 1.0 / L.boxz
     nc = max(1, _PLAIN_PAIRS.get(dev.type, 1 << 20) // (TPC * LANES * Wj))
-    n_pairs = torch.zeros((), dtype=torch.int64, device=dev)
 
     for c0 in range(0, Ncol, nc):
         cols = slice(c0, min(c0 + nc, Ncol))
@@ -345,7 +368,7 @@ def pair_apply_plain(launch: PairLaunch, body: PairBody,
             ok = ((nf("mask") > 0) & (r2 > 0) & ok_extra
                   & row_ok[:, :, None, :])
             if stats is not None:
-                n_pairs += torch.sum(ok & (sf("mask") > 0))
+                slot_pairs[cols, :TPC] += torch.sum(ok, dim=-1)
             for q, val in enumerate(sums):
                 acc[q] = acc[q] + torch.sum(torch.where(ok, val, 0.0),
                                             dim=-1)
@@ -360,8 +383,182 @@ def pair_apply_plain(launch: PairLaunch, body: PairBody,
             < L.tcounts[:, None].to(torch.int64))
     out = torch.where(live[None, :, :, None], out, 0.0)
     if stats is not None:
-        stats["pairs"] = int(n_pairs)
+        slot_pairs = torch.where(live[:, :, None], slot_pairs, 0)
+        live_i = L.Xi[fidx["mask"]].reshape(slot_pairs.shape) > 0
+        stats["pairs"] = int(torch.sum(torch.where(live_i, slot_pairs, 0)))
+        stats["slot_pairs"] = slot_pairs.reshape(Ncol * W)
     return out.reshape(n_out, Ncol * W)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's walk: reach bounds, walked slots, and a model of its filter
+# ---------------------------------------------------------------------------
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def _gh2(g2: float, h):
+    return g2 * h * h
+
+
+# (lane part, row part) of a bound on the r2 each body's predicate accepts,
+# as ``lane_reach2`` / ``row_reach2`` in csrc/pair_bodies.cuh and
+# csrc/probe_bodies.cuh: no pair with r2 above max(lane part of any slot
+# of a warp, row part of the j row) is accepted, and no pair at all with a
+# j row whose row part is negative.  Each entry maps (params, sf, nf) to
+# the two parts (sf, nf: field accessors of the i slots and j rows).
+REACH2: Dict[str, Callable] = {
+    "density": lambda p, sf, nf: (_gh2(_f32(p[0]), sf("h")), 0.0),
+    "gradient": lambda p, sf, nf: (_gh2(_f32(p[0]), sf("h")), 0.0),
+    "force": lambda p, sf, nf: (_gh2(_f32(p[0]), sf("h")),
+                                _gh2(_f32(p[0]), nf("h"))),
+    "force_gravity": lambda p, sf, nf: (
+        _gh2(_f32(p[0]), sf("h")),
+        torch.clamp_min(_gh2(_f32(p[0]), nf("h")), _f32(p[6]))),
+    "p2p_gravity": lambda p, sf, nf: (0.0, _f32(p[0])),
+    "timebin": lambda p, sf, nf: (0.0, torch.where(
+        (nf("act") > 0) & (nf("tb") > 0), _gh2(_f32(p[0]), nf("h")),
+        -1.0)),
+    "probe_a00": lambda p, sf, nf: (float("inf"), 0.0),
+    **{name: (lambda p, sf, nf: (_f32(0.0036), 0.0))
+       for name in ("probe_a", "probe_b", "probe_c", "probe_d", "probe_e")},
+}
+
+
+def walked_slots(launch: PairLaunch, mask_field: int) -> torch.Tensor:
+    """(Ncol, TPC, WARPS, 32) bool: the i slots the kernel walks itself.
+    A tile's empty slots whose fields are bit-identical to its first empty
+    slot (the representative) are not walked: the kernel evaluates that
+    one apart and copies its outputs to them.  ``mask_field``: the index
+    of the mask among the body's fields."""
+    L = launch
+    F, Ncol, W = L.Xi.shape[0], L.ncx * L.ncy, L.W
+    bits = L.Xi.reshape(F, Ncol, W // LANES, LANES).view(torch.int32)
+    empty = ~(L.Xi[mask_field].reshape(Ncol, W // LANES, LANES) > 0)
+    first = torch.argmax(empty.to(torch.int8), dim=-1)     # (Ncol, TPC)
+    rep = torch.gather(bits, -1, first[None, :, :, None].expand(
+        F, -1, -1, 1))
+    copy = empty & torch.all(bits == rep, dim=0)
+    return ~copy.reshape(Ncol, W // LANES, WARPS, 32)
+
+
+def warp_pairs(launch: PairLaunch, body: PairBody,
+               slot_pairs: torch.Tensor) -> torch.Tensor:
+    """(Ncol, TPC, WARPS) int64: the pairs each warp of the kernel
+    evaluates (its walk statistics' ``"pairs"``), from the plain version's
+    per-slot counts (``pair_apply_plain``'s ``"slot_pairs"``) over the
+    slots it walks."""
+    walked = walked_slots(launch, body.fields.index("mask"))
+    return torch.sum(torch.where(walked, slot_pairs.reshape(walked.shape),
+                                 0), dim=-1)
+
+
+def walk_filter(launch: PairLaunch, body: PairBody) -> Dict:
+    """Plain model of the kernel's warp filter.  Per warp (Ncol, TPC,
+    WARPS) int64 ``"staged"``: the rows of its tile's spans; ``"passed"``:
+    those the filter lets through (a live row within the body's reach
+    bounds, ``REACH2``, of the box around the warp's walked slots, z
+    periodic, with the kernel's slack); and ``"dropped"``: the pairs of
+    walked slots that the body accepts on rows the filter rejects (0 for
+    a conservative filter).  Dead tiles read 0."""
+    L = launch
+    dev = L.Xi.device
+    Ncol, W = L.ncx * L.ncy, L.W
+    TPC = W // LANES
+    F = len(body.fields)
+    fidx = {n: i for i, n in enumerate(body.fields)}
+    nbr = torch.as_tensor(_nbr_table(L.ncx, L.ncy), dtype=torch.int64,
+                          device=dev)
+    live_t = (torch.arange(TPC, device=dev)[None, :]
+              < L.tcounts[:, None].to(torch.int64))       # (Ncol, TPC)
+    own_all = walked_slots(L, fidx["mask"])
+    f32 = np.float32
+    slack = float(f32(BOX_SLACK) * (f32(L.boxz) + f32(L.ex) + f32(L.ey)))
+    inv_boxz = 1.0 / L.boxz
+    rows = torch.arange(W, device=dev)
+    xi_all = L.Xi.reshape(F, Ncol, TPC, WARPS, 32)
+    xa_all = L.Xa.reshape(Ncol, W, F)
+    w = L.ranges.to(torch.int64)                   # (Ncol, TPC, 9, 2)
+    start = (w & 0xFFFF) * GRAN
+    end = start + ((w >> 16) & 0xFFFF) * GRAN
+    staged = torch.where(live_t, torch.sum(end - start, dim=(-2, -1)), 0)
+    passed = torch.zeros((Ncol, TPC, WARPS), dtype=torch.int64, device=dev)
+    dropped = 0
+    nc = max(1, _PLAIN_PAIRS.get(dev.type, 1 << 20) // 4
+             // (LANES * TPC * W))
+    for c0 in range(0, Ncol, nc):
+        cols = slice(c0, min(c0 + nc, Ncol))
+        xi = xi_all[:, cols, :, :, :, None]        # (F, n, TPC, WARPS, 32, 1)
+        own = own_all[cols]                         # (n, TPC, WARPS, 32)
+
+        def sf(name):
+            return xi[fidx[name]]
+
+        def lo_hi(name):
+            v = sf(name)[..., 0]
+            return (torch.amin(torch.where(own, v, float("inf")), dim=-1),
+                    torch.amax(torch.where(own, v, float("-inf")), dim=-1))
+
+        box = []
+        for name in ("off0", "off1", "off2"):
+            lo, hi = lo_hi(name)
+            box.append((0.5 * (lo + hi)[..., None],
+                        (0.5 * (hi - lo) + slack)[..., None]))
+        lane_r2, _ = REACH2[body.name](
+            body.params, sf, lambda name: torch.zeros((), device=dev))
+        lane_r2 = torch.as_tensor(lane_r2, dtype=F32, device=dev)
+        lr2 = torch.amax(torch.where(own, lane_r2.expand(xi.shape[1:])[..., 0],
+                                     float("-inf")), dim=-1)[..., None]
+        any_own = torch.any(own, dim=-1)[..., None]  # (n, TPC, WARPS, 1)
+        for o, (dx, dy) in enumerate(OFFSETS_9):
+            xj = xa_all[nbr[cols, o]]              # (n, W, F)
+
+            def nf(name):
+                return xj[:, None, None, None, :, fidx[name]]
+
+            def nb(name):
+                return nf(name)[..., 0, :]         # (n, 1, 1, W)
+
+            sx = float(np.float32(dx * L.ex))
+            sy = float(np.float32(dy * L.ey))
+            bz = box[2][0] - nb("off2")
+            bz = bz - L.boxz * torch.round(bz * inv_boxz)
+            bz = torch.clamp_min(torch.abs(bz) - box[2][1], 0.0)
+            bx = torch.clamp_min(torch.abs(box[0][0] - (nb("off0") + sx))
+                                 - box[0][1], 0.0)
+            by = torch.clamp_min(torch.abs(box[1][0] - (nb("off1") + sy))
+                                 - box[1][1], 0.0)
+            _, row_r2 = REACH2[body.name](body.params, sf, nb)
+            row_r2 = torch.as_tensor(row_r2, dtype=F32, device=dev)
+            keep = (any_own & (nb("mask") > 0) & (row_r2 >= 0)
+                    & (bx * bx + by * by + bz * bz
+                       <= torch.maximum(row_r2, lr2) * REACH_SLACK))
+            dz = sf("off2") - nf("off2")
+            dz = dz - L.boxz * torch.round(dz * inv_boxz)
+            dxv = (sf("off0") - (nf("off0") + sx),
+                   sf("off1") - (nf("off1") + sy), dz)
+            r2 = dxv[0] * dxv[0] + dxv[1] * dxv[1] + dxv[2] * dxv[2]
+            ok_extra, _, _ = body.fn(sf, nf, dxv, r2)
+            ok = ((nf("mask") > 0) & (r2 > 0) & ok_extra
+                  & own[..., None])                   # (n,TPC,WARPS,32,W)
+            s_, e_ = start[cols, :, o, :, None], end[cols, :, o, :, None]
+            span = torch.any((rows >= s_) & (rows < e_), dim=-2)
+            span = (span & live_t[cols][..., None])[:, :, None, :]
+            passed[cols] += torch.sum(keep & span, dim=-1)
+            dropped += int(torch.sum(ok & (span & ~keep)[..., None, :]))
+    return {"staged": staged[..., None].expand(-1, -1, WARPS),
+            "passed": passed, "dropped": dropped}
+
+
+def walk_summary(stats: torch.Tensor) -> Dict[str, float]:
+    """Totals of the kernel's per-warp walk statistics and the lane
+    utilisation (accepted pairs over 32 lanes x rounds)."""
+    n = stats.shape[-1]
+    tot = {k: int(v) for k, v in zip(
+        WALK_STATS, stats.reshape(-1, n).sum(0).tolist())}
+    tot["utilisation"] = tot["pairs"] / max(32 * tot["rounds"], 1)
+    return tot
 
 
 # ---------------------------------------------------------------------------
@@ -379,21 +576,48 @@ PROBE_BODY_NAMES = ("probe_a00", "probe_a", "probe_b", "probe_c", "probe_d",
 def _bind(lib: ctypes.CDLL) -> None:
     for name in BODY_NAMES + PROBE_BODY_NAMES:
         fn = getattr(lib, f"pair_flat_{name}")
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_float] * 4
                        + [ctypes.POINTER(ctypes.c_float), ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        attr = getattr(lib, f"pair_flat_{name}_attributes")
+        attr.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        attr.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("pair_flat", ("pair_flat.cu", "pair_bodies.cuh",
                                      "probe_bodies.cuh"), _bind)
 
+ATTRIBUTES = ("registers", "local_bytes", "static_smem", "dynamic_smem",
+              "blocks_per_sm", "fields", "window", "chunk_rows", "stages",
+              "warps", "n_stats")
 
-def pair_apply_kernel(launch: PairLaunch, body: PairBody) -> torch.Tensor:
+
+def kernel_attributes(name: str) -> Dict[str, int]:
+    """The compiled kernel of body ``name``: registers per thread, local
+    memory bytes per thread (spills), static and dynamic shared memory per
+    block, resident blocks per SM, and its walk's constants (needs the
+    card).  Raises if its statistics are not laid out as ``WALK_STATS``
+    per warp."""
+    res = (ctypes.c_int * len(ATTRIBUTES))()
+    err = getattr(LIBRARY.load(), f"pair_flat_{name}_attributes")(res)
+    if err != 0:
+        raise RuntimeError(f"pair_flat_{name}_attributes: CUDA error {err}")
+    a = dict(zip(ATTRIBUTES, res))
+    if (a["warps"], a["n_stats"]) != (WARPS, len(WALK_STATS)):
+        raise RuntimeError(f"pair_flat_{name}: the kernel's statistics "
+                           f"{a} are not laid out as WALK_STATS per warp")
+    return a
+
+
+def pair_apply_kernel(launch: PairLaunch, body: PairBody,
+                      stats: Optional[Dict] = None) -> torch.Tensor:
     """Launch the CUDA kernel of ``body`` on PyTorch's current stream.
 
-    Returns (n_sum + n_max, Ncol*W).  Raises on anything the kernel does
+    Returns (n_sum + n_max, Ncol*W).  ``stats``, when given, receives
+    ``"walk"``: the (Ncol, TPC, WARPS, 8) i32 per-warp statistics of
+    ``WALK_STATS`` (0 for dead tiles).  Raises on anything the kernel does
     not take and on a launch error."""
     L = launch
     F = len(body.fields)
@@ -412,16 +636,26 @@ def pair_apply_kernel(launch: PairLaunch, body: PairBody) -> torch.Tensor:
         raise ValueError("pair_apply_kernel: inconsistent shapes")
     if Ncol > 65535:
         raise ValueError(f"pair_apply_kernel: {Ncol} columns > 65535")
+    if L.Xa.data_ptr() % 16:
+        raise ValueError("pair_apply_kernel: Xa must be 16-byte aligned "
+                         "(bulk copies)")
     fn = getattr(LIBRARY.load(), f"pair_flat_{body.name}")
     out = torch.zeros((body.n_sum + body.n_max, Ncol * W), dtype=F32,
                       device=dev)
+    walk = None
+    if stats is not None:
+        walk = torch.zeros((Ncol, W // LANES, WARPS, len(WALK_STATS)),
+                           dtype=I32, device=dev)
     prm = (ctypes.c_float * max(1, len(body.params)))(*body.params)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(L.tcounts.data_ptr(), L.ranges.data_ptr(), L.Xi.data_ptr(),
-             L.Xa.data_ptr(), out.data_ptr(), L.ncx, L.ncy, W, GRAN, F,
-             L.ex, L.ey, L.boxz, 1.0 / L.boxz, prm, len(body.params),
-             stream)
+             L.Xa.data_ptr(), out.data_ptr(),
+             None if walk is None else walk.data_ptr(), L.ncx, L.ncy, W,
+             GRAN, F, L.ex, L.ey, L.boxz, 1.0 / L.boxz, prm,
+             len(body.params), stream)
     if err != 0:
         raise RuntimeError(f"pair_flat_{body.name}: CUDA error {err}")
     LAUNCHES[body.name] = LAUNCHES.get(body.name, 0) + 1
+    if walk is not None:
+        stats["walk"] = walk
     return out

@@ -107,7 +107,7 @@ def trace(eng, n_steps=4):
     for e in kernels:
         ms = e.time_range.elapsed_us() / 1e3
         body = next((b for b in BODIES
-                     if f"pair_flat_kernel<{b}>" in e.name), None)
+                     if f"pair_flat_kernel<{b}," in e.name), None)
         if body is None:
             other_ms += ms
             other_n += 1
