@@ -9,11 +9,12 @@ Phases (any failure ends the script with a non-zero exit and no result):
    (nvidia-smi) and the torch/CUDA versions.
 2. Build: compile the flat pair kernel (csrc/pair_flat.cu, with the cost
    probe's bodies), the packed 27-cell pair kernel (csrc/pair_packed.cu),
-   the ring-buffer 27-cell pair kernel (csrc/pair_ring.cu) and the FP32
-   probe (csrc/vpu_peak.cu) with nvcc into build/, one nvcc process each,
-   started together, and load them all.  For each entry of the flat
-   kernel print its registers, spills (ptxas), local memory, shared
-   memory per block and resident blocks per SM.
+   the ring-buffer 27-cell pair kernel (csrc/pair_ring.cu; both on the
+   walk of csrc/walk27.cuh) and the FP32 probe (csrc/vpu_peak.cu) with
+   nvcc into build/, one nvcc process each, started together, and load
+   them all.  For each entry of the flat kernel print its registers,
+   spills (ptxas), local memory, shared memory per block and resident
+   blocks per SM (the 27-cell kernels' at each hold, phases 5 and 7).
 3. Kernel vs plain: on the bench IC at n1=24 (27,648 particles), mesh_N=64,
    after init_particles(), run each of the five flat pair bodies through
    the CUDA kernel and through its plain torch version on the same
@@ -42,8 +43,13 @@ Phases (any failure ends the script with a non-zero exit and no result):
    just before.  Checks: finite state, the example's shock radius rule
    (within 10% of Sedov's), >= 3 time bins populated at some step, every
    re-grid made through the step's retry or its occupancy trigger, every
-   K2 body launched; each K2 body's kernel against its plain version on
-   the final state (tolerances of phase 3).  Without the limiter the
+   K2 body launched; each K2 body's kernel against its plain version
+   (tolerances of phase 3) on the final state, all active, and on the
+   particles active one smallest step before the end, through the active
+   subset (``hold_27``): its pairs per warp equal the plain version's, a
+   launch with statistics and a second launch give the same bits, and
+   its kept-row share, lane utilisation and build are printed.  Without
+   the limiter the
    blast loses ~50% of its energy in its first steps at this resolution,
    on either backend, so the example's energy rule (drift below 5%) is
    held on path B, and path A's drift and shock radius are held within
@@ -59,8 +65,7 @@ Phases (any failure ends the script with a non-zero exit and no result):
    pallas_ring configuration: 27-cell grid, the ring-buffer kernel K3,
    the limiter's 27-cell stencil.timebin_loop): the same IC and run, the
    checks of path B (energy rule, wakes) and every K3 body launched; then
-   each K3 body's kernel against its plain version on the final state
-   (tolerances of phase 3).
+   each K3 body's kernel against its plain version as K2's on path A.
 8. Probes: the FP32 probe's kernel against its plain version on the
    reference's (256, 128) tile at 2 x 64 steps (relative tolerance
    vpu_peak.tolerance), then its entry point (tile and full-card rates);
@@ -72,7 +77,8 @@ Phases (any failure ends the script with a non-zero exit and no result):
    times, and its bound: the larger of the bytes it must move -- the
    particles' fields it reads, the output slots it writes and the index
    words it reads -- over 3.35 TB/s and its FP32 operations on the run's
-   true pairs over 67 TFLOP/s) and, as the last line, the result object.
+   true pairs over 67 TFLOP/s; K2's and K3's at the final state) and, as
+   the last line, the result object.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -311,8 +317,8 @@ def bound(body, work, pairs):
 
 def hold_against_plain(module, launch, body, card, exact=False, reps=5):
     """Kernel vs plain version on one launch: times (CUDA events), the
-    comparison, and the true pairs the plain version counts; for the flat
-    kernel also its walk (``hold_walk``)."""
+    comparison, the true pairs the plain version counts, and the kernel's
+    walk (``hold_walk``)."""
     import torch
     out_k, ms = time_ms(lambda: module.pair_apply_kernel(launch, body),
                         reps)
@@ -333,8 +339,7 @@ def hold_against_plain(module, launch, body, card, exact=False, reps=5):
           f"{stats['pairs']} [{card}]")
     check(ok, f"{body.name}: kernel and plain version disagree"
           + (" (must be bit-identical)" if exact else ""))
-    if module.__name__.endswith(".pair_flat"):
-        hold_walk(launch, body, out_k, stats, card)
+    hold_walk(module, launch, body, out_k, stats, card)
     del out_k
     return ms, plain_ms, max_abs, stats["pairs"]
 
@@ -360,25 +365,14 @@ def flat_work(launch, body):
             4 * (launch.tcounts.numel() + 18 * live_tiles))
 
 
-def packed_work(launch):
-    """Live particles, written slots and index bytes of one packed launch:
-    the kernel reads every cell's live count and writes the slots of the
-    8-slot blocks that start below it."""
-    from swift_subtask_dev_tpu_torch.ops import pair_packed
-    counts = launch.counts.long()
-    blk = pair_packed.BLOCK
-    written = int(((counts + blk - 1) // blk * blk).clamp(max=launch.K).sum())
-    return (int(counts.sum()), written, 4 * counts.numel())
-
-
-def ring_work(launch, body):
-    """Live particles, written slots and index bytes of one ring launch:
-    the kernel relies on no live count, so it reads the mask of every
-    slot (charged as index bytes) and the fields of the live ones, and
-    writes the live slots."""
-    mask = launch.Xi[body.fields.index("mask")]
-    n_live = int((mask > 0).sum())
-    return (n_live, n_live, 4 * mask.numel())
+def work27(launch):
+    """Live particles, written slots and index bytes of one launch of a
+    27-cell kernel (K2, K3): it reads the live rows of every cell (each
+    walked slot is one of them), writes the walked slots, and reads the
+    cells' live counts, the warps' slot words and the block words."""
+    return (int(launch.counts.sum()), int(launch.walked.sum()),
+            4 * (launch.counts.numel() + launch.wslot.numel()
+                 + launch.blocks.numel()))
 
 
 def phase_kernel_vs_plain(device, card):
@@ -401,32 +395,57 @@ def phase_kernel_vs_plain(device, card):
               f"rel_errs={[float(f'{e:.2e}') for e in errs]} "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms [{card}]")
         check(ok, f"{body.name}: kernel and plain version disagree")
-        hold_walk(launch, body, out_k, stats, card)
+        hold_walk(pair_flat, launch, body, out_k, stats, card)
         results[body.name] = ms
     return results
 
 
-def hold_walk(launch, body, out_k, plain_stats, card):
-    """The flat kernel's walk on one launch: a launch with statistics
-    gives ``out_k``'s bits, and the pairs each warp evaluates equal the
-    plain version's accepted pairs over the slots that warp walks, so its
-    filter drops no accepted pair and it evaluates no other.  Prints the
-    walk's totals and lane utilisation."""
+def hold_walk(module, launch, body, out_k, plain_stats, card):
+    """A pair kernel's walk on one launch: a launch with statistics gives
+    ``out_k``'s bits, and the pairs each warp evaluates equal the plain
+    version's accepted pairs over the slots that warp walks, so its filter
+    drops no accepted pair and it evaluates no other.  Prints the walk's
+    totals, the share of staged rows it kept and its lane utilisation.
+    For the 27-cell kernels also two launches without statistics must
+    give the same bits, and their build (registers, spills, shared memory,
+    blocks per SM at the launch's warps a block) is printed."""
     import torch
-    from swift_subtask_dev_tpu_torch.ops import pair_flat
+    from swift_subtask_dev_tpu_torch.ops import pair_flat, walk27
+    flat = module is pair_flat
     st = {}
-    out_s = pair_flat.pair_apply_kernel(launch, body, st)
+    out_s = module.pair_apply_kernel(launch, body, st)
     walk = st["walk"].long()
-    got = walk[..., pair_flat.WALK_STATS.index("pairs")]
-    want = pair_flat.warp_pairs(launch, body, plain_stats["slot_pairs"])
+    slot_pairs = plain_stats["slot_pairs"]
+    if flat:
+        got = walk[..., pair_flat.WALK_STATS.index("pairs")]
+        want = pair_flat.warp_pairs(launch, body, slot_pairs)
+        summary = pair_flat.walk_summary(walk)
+    else:
+        got = walk[..., walk27.WALK_STATS.index("pairs")]
+        want = walk27.warp_pairs(launch, slot_pairs)
+        summary = walk27.walk_summary(walk)
     same = bool(torch.equal(got, want))
-    print(f"    walk: {pair_flat.walk_summary(walk)}; pairs per warp "
+    kept = summary["kept"] / max(summary["staged"], 1)
+    print(f"    walk: {summary}; kept share {kept:.4f}; pairs per warp "
           f"{'equal to' if same else 'DIFFERENT from'} the plain "
           f"version's [{card}]")
     check(same, f"{body.name}: the kernel's pairs per warp differ from "
           "the plain version's")
     check(torch.equal(out_s, out_k), f"{body.name}: a launch with walk "
           "statistics gave other outputs")
+    if not flat:
+        again = bool(torch.equal(module.pair_apply_kernel(launch, body),
+                                 out_k))
+        a = module.kernel_attributes(body.name, launch.wpb)
+        print(f"    two launches on the same inputs: "
+              f"{'bit-identical' if again else 'DIFFER'}; {launch.wpb} "
+              f"warps a block ({launch.blocks.shape[0]} blocks, "
+              f"{launch.wslot.numel() // 32} warps): {a['registers']} "
+              f"registers, {a['local_bytes']} local (spill) bytes/thread, "
+              f"shared {a['static_smem']} static + {a['dynamic_smem']} "
+              f"dynamic bytes/block, {a['blocks_per_sm']} blocks/SM "
+              f"[{card}]")
+        check(again, f"{body.name}: two launches gave other bits")
 
 
 def brute_density(eng, P, n_sample=1024, seed=0):
@@ -618,6 +637,34 @@ def sedov_passes(eng):
             hydro_flat.force_pass(s, P, NO_COSMO)]
 
 
+def hold_27(module, eng, launches, source, replaces, card):
+    """Each body of a Sedov path's 27-cell kernel (K2 or K3) against its
+    plain version, with its walk (``hold_walk``): at the final state, with
+    every particle active (the {"kernels"} entries), and on the particles
+    active one smallest step before the end, through the active subset."""
+    prefix = module.__name__.rsplit(".", 1)[-1]
+    live = eng.state["mask"] > 0
+    kernels = []
+    for label, active in (("the final state, all active", None),
+                          ("the particles active one smallest step before "
+                           "the end", last_step_active(eng))):
+        n_on = int((live if active is None else active).sum())
+        print(f"  {prefix} on {label}: {n_on} of {int(live.sum())} "
+              f"particles")
+        for pp in sedov_passes(eng):
+            launch, body = module.prepare(eng.grid, pp, active), pp.body
+            ms, plain_ms, max_abs, pairs = hold_against_plain(
+                module, launch, body, card)
+            b_ms, b_by = bound(body, work27(launch), pairs)
+            print(f"    bound {b_ms:.4f} ms ({b_by}); the kernel at "
+                  f"{ms / b_ms:.1f}x it [{card}]")
+            if active is None:
+                kernels.append(entry(f"{prefix}_{body.name}", source,
+                                     replaces, launches[body.name], max_abs,
+                                     ms, plain_ms, b_ms, b_by))
+    return kernels
+
+
 def phase_sedov_pallas(device, card):
     """Path A.  The example runs without the timestep limiter; at this
     resolution that costs ~50% of the total energy in the first steps,
@@ -631,16 +678,8 @@ def phase_sedov_pallas(device, card):
     for name in pair_packed.KERNEL_BODIES:
         check(launches["packed"].get(name, 0) > 0,
               f"pair_packed_{name}: kernel never launched on path A")
-    kernels = []
-    for pp in sedov_passes(eng):
-        launch, body = pair_packed.prepare(eng.grid, pp), pp.body
-        ms, plain_ms, max_abs, pairs = hold_against_plain(
-            pair_packed, launch, body, card)
-        b_ms, b_by = bound(body, packed_work(launch), pairs)
-        kernels.append(entry(f"pair_packed_{body.name}", PACKED_SOURCE,
-                             PACKED_REPLACES,
-                             launches["packed"][body.name], max_abs, ms,
-                             plain_ms, b_ms, b_by))
+    kernels = hold_27(pair_packed, eng, launches["packed"], PACKED_SOURCE,
+                      PACKED_REPLACES, card)
     del eng
     _, twin = sedov.run_blast(SEDOV_N, SEDOV_T_END, "flat", False, device)
     d_a, d_f = res["energy_drift"], twin["energy_drift"]
@@ -718,16 +757,8 @@ def phase_sedov_ring(device, card):
               f"pair_ring_{name}: kernel never launched on path C")
     check(not launches["packed"] and not launches["flat"],
           f"path C launched another pair kernel: {launches}")
-    kernels = []
-    for pp in sedov_passes(eng):
-        launch, body = pair_ring.prepare(eng.grid, pp), pp.body
-        ms, plain_ms, max_abs, pairs = hold_against_plain(
-            pair_ring, launch, body, card)
-        b_ms, b_by = bound(body, ring_work(launch, body), pairs)
-        kernels.append(entry(f"pair_ring_{body.name}", RING_SOURCE,
-                             RING_REPLACES, launches["ring"][body.name],
-                             max_abs, ms, plain_ms, b_ms, b_by))
-    return kernels
+    return hold_27(pair_ring, eng, launches["ring"], RING_SOURCE,
+                   RING_REPLACES, card)
 
 
 def phase_vpu_peak(device, card):

@@ -140,14 +140,14 @@ def _ghost_density(grid: CellGrid, p: SPHENIXParams, cosmo: CosmoFactors,
                    engine: str = "flat"):
     """Density loop + smoothing-length iteration (the ghost).
 
-    On the flat engine it re-runs only the 128-slot i-tiles holding
-    unconverged particles (the reference's unconverged-subset loops,
-    runner_ghost.c:1085): exact, because rho_i depends on h_i only, so
-    skipped tiles keep valid values and mixed tiles recompute in full.  The
-    27-cell engines recompute every slot each trip (the reference's
-    non-subset branch).  Returns (h, dens, n_iter)."""
+    Each trip re-runs only the unconverged particles (the reference's
+    unconverged-subset loops, runner_ghost.c:1085): the flat engine the
+    128-slot i-tiles holding one, the 27-cell engines the particles
+    themselves.  Exact, because rho_i depends on h_i only, so skipped
+    particles keep valid values and mixed tiles recompute in full (the
+    reference's 27-cell engines recompute every slot each trip).  Returns
+    (h, dens, n_iter)."""
     kroot_eps = float(np.float32(p.kernel.root) * np.float32(1.0 + 1e-5))
-    subset = engine == "flat"
 
     def density_pass(h, act=None):
         dens = hydro_flat.density_loop(grid, {**s, "h": h}, p,
@@ -176,12 +176,12 @@ def _ghost_density(grid: CellGrid, p: SPHENIXParams, cosmo: CosmoFactors,
         upd = active & ~conv
         h = torch.where(upd, h_new, h)
         d_new = density_pass(h, act=upd)
-        if subset:
+        if engine == "flat":
             tflag = torch.any(upd.reshape(C, W // 128, 128), dim=2)
             fp = tflag[:, :, None].expand(C, W // 128, 128).reshape(C, W)
-            d = {k: _where_active(fp, d_new[k], d[k]) for k in d}
         else:
-            d = d_new
+            fp = upd
+        d = {k: _where_active(fp, d_new[k], d[k]) for k in d}
         _, _, _, c2 = h_update(h, d, left, right)
         conv = conv | ~upd | (upd & c2)
         n_iter += 1
@@ -197,8 +197,8 @@ def _gas_loops(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
     tb = _tb_index(s["time_bin"])
     engine = BACKENDS[cfg.backend]
     # the flat engine skips i-tiles with no active particle (zeroed range
-    # words), the 27-cell ones recompute every slot; either way the
-    # active-masked merges keep the inactive particles' old values
+    # words), the 27-cell ones the inactive particles; the active-masked
+    # merges keep the inactive particles' old values
     h_new, dens, n_ghost_iter = _ghost_density(
         grid, p, cosmo, s, active, cfg.max_ghost_iterations, engine)
     s = {**s, "h": torch.where(active, h_new, s["h"])}

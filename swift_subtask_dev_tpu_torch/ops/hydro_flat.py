@@ -9,9 +9,11 @@ gravity and the limiter's timebin scan on the flat engine.  Each loop
 builds a :class:`~.pair_flat.PairPass` — the (C, K) field tiles in the
 body's field order, the body's constants and its plain torch callback —
 and runs it through the engine's ``pair_apply`` (the CUDA kernel on the
-card, the plain version on the CPU).  ``active_i`` (skip i-tiles with no
-active particle) applies to the flat engine only; the 27-cell engines
-recompute every slot, as the reference's do.
+card, the plain version on the CPU).  ``active_i`` evaluates only the
+active particles: the flat engine skips i-tiles with no active particle,
+the 27-cell engines every slot that is not active (the reference's
+27-cell engines recompute every slot); the callers merge the results into
+active particles only.
 
 Conventions kept from the reference: padded slots hold division-safe
 fills (``_san``: h, m, rho, P = 1); the gravity mass is ``m * mask``; the
@@ -52,13 +54,13 @@ ENGINES = ("flat", "packed", "ring")
 
 
 def _apply(engine: str, grid: CellGrid, pp: PairPass, active_i=None):
-    """Run a pass on the named engine; ``active_i`` is a flat-only hint."""
+    """Run a pass on the named engine, on the ``active_i`` subset."""
     if engine == "flat":
         return pair_flat.pair_apply(grid, pp, active_i)
     if engine == "packed":
-        return pair_packed.pair_apply(grid, pp)
+        return pair_packed.pair_apply(grid, pp, active_i)
     if engine == "ring":
-        return pair_ring.pair_apply(grid, pp)
+        return pair_ring.pair_apply(grid, pp, active_i)
     raise ValueError(f"unknown pair engine {engine!r} (have {ENGINES})")
 
 

@@ -551,12 +551,13 @@ def walk_filter(launch: PairLaunch, body: PairBody) -> Dict:
             "passed": passed, "dropped": dropped}
 
 
-def walk_summary(stats: torch.Tensor) -> Dict[str, float]:
-    """Totals of the kernel's per-warp walk statistics and the lane
-    utilisation (accepted pairs over 32 lanes x rounds)."""
+def walk_summary(stats: torch.Tensor,
+                 names: Tuple[str, ...] = WALK_STATS) -> Dict[str, float]:
+    """Totals of a kernel's per-warp walk statistics ``names`` and the
+    lane utilisation (accepted pairs over 32 lanes x rounds)."""
     n = stats.shape[-1]
     tot = {k: int(v) for k, v in zip(
-        WALK_STATS, stats.reshape(-1, n).sum(0).tolist())}
+        names, stats.reshape(-1, n).sum(0).tolist())}
     tot["utilisation"] = tot["pairs"] / max(32 * tot["rounds"], 1)
     return tot
 
@@ -587,7 +588,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = KernelLibrary("pair_flat", ("pair_flat.cu", "pair_bodies.cuh",
-                                     "probe_bodies.cuh"), _bind)
+                                     "probe_bodies.cuh", "walk.cuh"), _bind)
 
 ATTRIBUTES = ("registers", "local_bytes", "static_smem", "dynamic_smem",
               "blocks_per_sm", "fields", "window", "chunk_rows", "stages",

@@ -3,42 +3,41 @@
 Port of the reference's ``ops/pallas_packed.py`` (the ``backend="pallas"``
 engine).  The domain is a periodic 3-d grid of cells
 (``CellGrid.build_for_positions``) whose live particles fill a prefix of
-each cell's K slots.  For every i slot and each of the 27 stencil cells
-(``stencil.STENCIL_27``, self first), a pair body is evaluated on the j
-slots with the periodic shift folded into the j offsets, and ``n_sum``
-masked sums and ``n_max`` masked maxes are reduced per i slot.  The pair
-mask is ``mask_j > 0 & r2 > 0 & ok_extra``.
+each cell's K slots.  For every walked i slot (live, and active when the
+caller passes ``active_i``) and each of the 27 stencil cells
+(``stencil.STENCIL_27``, self first), a pair body is evaluated on the
+cell's live slots with the periodic shift folded into the j offsets,
+``off_i - (off_j + shift)``, and ``n_sum`` masked sums and ``n_max``
+masked maxes are reduced per slot.  The pair mask is ``mask_j > 0 & r2 > 0
+& ok_extra``.
 
 It takes the same :class:`~.pair_flat.PairPass` objects as the flat
 engine (their range fields are unused here).  ``pair_apply`` runs the
-hand-written CUDA kernel (``csrc/pair_packed.cu``) on CUDA tensors and
+hand-written CUDA kernel (``csrc/pair_packed.cu`` on the shared walk of
+``csrc/walk27.cuh``, ``ops/walk27.py``) on CUDA tensors and
 ``pair_apply_plain`` on CPU tensors; there is no other path.  Output
-conventions follow the reference kernel: slots whose 8-slot block starts
-at or past the cell's live count read 0 in every output; evaluated slots
-with no accepted pair read 0 (sums) / -inf (maxes).
+conventions: a walked slot with no accepted pair reads 0 (sums) / -inf
+(maxes), as in the reference kernel; every other slot reads 0 in every
+output, where the reference kernel evaluates the empty slots of a live
+8-slot block with their pad fills and every active or inactive slot.  The
+loops multiply by the mask or merge into live (active) particles only, so
+their results are the reference's.
 """
 
 from __future__ import annotations
 
-import ctypes
-import math
-from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
-import numpy as np
 import torch
 
 from ..grid.cellgrid import CellGrid
+from . import walk27
 from .cuda_build import KernelLibrary
 from .pair_flat import PairBody, PairPass
 from .stencil import STENCIL_27
+from .walk27 import Launch27
 
 F32 = torch.float32
-I32 = torch.int32
-LANES = 128      # i slots per CUDA block (one thread per slot)
-BLOCK = 8        # i slots skipped together past a cell's live count
-# plain version: pair evaluations per cell chunk (bounds its memory)
-_PLAIN_PAIRS = {"cpu": 1 << 21, "cuda": 1 << 24}
 # bodies the CUDA kernel instantiates
 KERNEL_BODIES = ("density", "gradient", "force")
 
@@ -51,39 +50,38 @@ def reset_launches() -> None:
     LAUNCHES.clear()
 
 
-@dataclass
-class PackedLaunch:
-    """Everything the kernel and the plain version take (same contract)."""
-
-    counts: torch.Tensor       # (C,) i32 live slots per cell
-    Xi: torch.Tensor           # (F, C*K) f32, i-side SoA
-    Xa: torch.Tensor           # (C*K, F) f32, j-side AoS
-    cdim: Tuple[int, int, int]
-    K: int
-    edge: Tuple[float, float, float]
+def sep(off_i, off_j, shift):
+    """The TPU kernel's separation: the shift folded into the j offset."""
+    return off_i - (off_j + shift)
 
 
-def prepare(grid: CellGrid, pp: PairPass) -> PackedLaunch:
-    """Live counts per cell and the SoA/AoS field copies of one pass."""
+def prepare(grid: CellGrid, pp: PairPass,
+            active_i: Optional[torch.Tensor] = None) -> Launch27:
+    """Live counts per cell, the SoA/AoS field copies of one pass and the
+    warps of its walked slots (live, and active when ``active_i`` is
+    given)."""
     if any(c < 3 for c in grid.cdim):
         raise ValueError(f"packed engine needs a 3-d grid with >= 3 cells "
                          f"per axis (cdim {grid.cdim})")
     f = pp.fields
-    counts = torch.sum(f["mask"] > 0, dim=1).to(I32)
+    C, K = f["mask"].shape
+    live = f["mask"] > 0
+    walked = live if active_i is None else live & (active_i > 0)
     Xi = torch.stack([f[n].reshape(-1).to(F32) for n in pp.body.fields],
                      dim=0).contiguous()
-    return PackedLaunch(counts=counts.contiguous(), Xi=Xi,
-                        Xa=Xi.t().contiguous(), cdim=tuple(grid.cdim),
-                        K=int(f["mask"].shape[1]),
-                        edge=tuple(float(e) for e in grid.edge))
+    return walk27.make_launch(grid, Xi, Xi.t().reshape(C, K, -1),
+                              torch.sum(live, dim=1), None, walked)
 
 
-def pair_apply(grid: CellGrid, pp: PairPass):
+def pair_apply(grid: CellGrid, pp: PairPass,
+               active_i: Optional[torch.Tensor] = None):
     """Run ``pp.body`` over all pairs of the 27-cell stencil.
 
     Returns (sums, maxes) as lists of (C, K) tensors.  CUDA tensors go to
-    the CUDA kernel, CPU tensors to the plain version."""
-    launch = prepare(grid, pp)
+    the CUDA kernel, CPU tensors to the plain version.  ``active_i``
+    ((C, K) bool/0-1): only its live slots are evaluated; the others read
+    0 and the caller merges previous values."""
+    launch = prepare(grid, pp, active_i)
     if launch.Xi.is_cuda:
         out = pair_apply_kernel(launch, pp.body)
     elif launch.Xi.device.type == "cpu":
@@ -91,151 +89,48 @@ def pair_apply(grid: CellGrid, pp: PairPass):
     else:
         raise RuntimeError(
             f"pair_apply: no path for device {launch.Xi.device}")
-    C, K = grid.C, launch.K
-    res = out.reshape(-1, C, K)
-    body = pp.body
-    return ([res[q] for q in range(body.n_sum)],
-            [res[body.n_sum + q] for q in range(body.n_max)])
+    return walk27.split(out, pp.body, grid.C, launch.K)
 
 
-def nbr_cell_table(cdim, offsets=STENCIL_27) -> np.ndarray:
-    """(C, 27) linear ids of each cell's stencil cells (periodic wrap), in
-    the order of ``offsets``."""
-    ncx, ncy, ncz = cdim
-    ids = np.arange(ncx * ncy * ncz)
-    ix, iy, iz = ids // (ncy * ncz), (ids // ncz) % ncy, ids % ncz
-    out = np.empty((len(ids), 27), np.int64)
-    for o, (dx, dy, dz) in enumerate(offsets):
-        out[:, o] = (((ix + dx) % ncx) * ncy + (iy + dy) % ncy) * ncz \
-            + (iz + dz) % ncz
-    return out
-
-
-# ---------------------------------------------------------------------------
-# Plain torch version (same contract as the kernel)
-# ---------------------------------------------------------------------------
-
-def pair_apply_plain(launch: PackedLaunch, body: PairBody,
+def pair_apply_plain(launch: Launch27, body: PairBody,
                      stats: Optional[Dict] = None) -> torch.Tensor:
-    """(n_sum + n_max, C*K) outputs of ``body``, evaluated densely for the
-    slots of every live 8-block against the 27 stencil cells' slots
-    [0, Kj), Kj the fullest cell's live count.  Every slot past a cell's
-    count must be empty (the front-packing the kernel relies on): checked
-    here, and a violation raises.  Chunked over cells to bound memory.
-
-    ``stats``, when given, receives ``"pairs"``: the accepted pairs whose i
-    slot is live (the work the pass needs, for a roofline bound)."""
+    """``walk27.pair_apply_plain`` in STENCIL_27 order with this engine's
+    separation.  Every slot past a cell's count must be empty (the
+    front-packing the kernel relies on): checked here, and a violation
+    raises."""
     L = launch
-    dev = L.Xi.device
-    C, K = L.Xi.shape[1] // L.K, L.K
-    F = len(body.fields)
-    fidx = {n: i for i, n in enumerate(body.fields)}
-    n_out = body.n_sum + body.n_max
-    counts = L.counts.to(torch.int64)
-    xa = L.Xa.reshape(C, K, F)
-    slots = torch.arange(K, device=dev)
-    past = slots[None, :] >= counts[:, None]
-    if bool(torch.any(past & (xa[..., fidx["mask"]] > 0))):
+    C = L.Xi.shape[1] // L.K
+    mask = L.Xi[body.fields.index("mask")].reshape(C, L.K)
+    past = (torch.arange(L.K, device=mask.device)[None, :]
+            >= L.counts[:, None].long())
+    if bool(torch.any(past & (mask > 0))):
         raise ValueError("pair_apply_plain: a live slot lies past its "
                          "cell's count (cells must be front-packed)")
-    out = torch.zeros((n_out, C, K), dtype=F32, device=dev)
-    Kj = int(counts.max()) if C else 0
-    if Kj == 0:
-        if stats is not None:
-            stats["pairs"] = 0
-        return out.reshape(n_out, C * K)
-    Ki = min(K, BLOCK * math.ceil(Kj / BLOCK))
-    nbr = torch.as_tensor(nbr_cell_table(L.cdim), device=dev)
-    shift = torch.tensor([[float(np.float32(d[a] * L.edge[a]))
-                           for a in range(3)] for d in STENCIL_27],
-                         dtype=F32, device=dev)                # (27, 3)
-    xi_all = L.Xi.reshape(F, C, K)[:, :, :Ki, None]        # (F, C, Ki, 1)
-    xj_all = xa[:, :Kj]                                     # (C, Kj, F)
-    live = ((torch.arange(Ki, device=dev) // BLOCK * BLOCK)[None, :]
-            < counts[:, None])                              # (C, Ki)
-    n_pairs = torch.zeros((), dtype=torch.int64, device=dev)
-    nc = max(1, _PLAIN_PAIRS.get(dev.type, 1 << 21) // (Ki * 27 * Kj))
-
-    for c0 in range(0, C, nc):
-        cells = slice(c0, min(c0 + nc, C))
-        xi = xi_all[:, cells]                               # (F, n, Ki, 1)
-        n = xi.shape[1]
-        xj = xj_all[nbr[cells]]                             # (n, 27, Kj, F)
-        offs = [(xj[..., fidx[f"off{a}"]] + shift[None, :, None, a])
-                .reshape(n, 1, 27 * Kj) for a in range(3)]
-        xj = xj.reshape(n, 1, 27 * Kj, F)
-
-        def sf(name):
-            return xi[fidx[name]]
-
-        def nf(name):
-            return xj[..., fidx[name]]                      # (n, 1, 27Kj)
-
-        dxv = tuple(sf(f"off{a}") - offs[a] for a in range(3))
-        r2 = dxv[0] * dxv[0] + dxv[1] * dxv[1] + dxv[2] * dxv[2]
-        ok_extra, sums, maxes = body.fn(sf, nf, dxv, r2)
-        ok = (nf("mask") > 0) & (r2 > 0) & ok_extra
-        if stats is not None:
-            n_pairs += torch.sum(ok & (sf("mask") > 0))
-        for q, val in enumerate(sums):
-            out[q, cells, :Ki] = torch.sum(torch.where(ok, val, 0.0), dim=-1)
-        for q, val in enumerate(maxes):
-            out[body.n_sum + q, cells, :Ki] = torch.amax(
-                torch.where(ok, val, float("-inf")), dim=-1)
-    out[:, :, :Ki] = torch.where(live[None], out[:, :, :Ki], 0.0)
-    if stats is not None:
-        stats["pairs"] = int(n_pairs)
-    return out.reshape(n_out, C * K)
+    return walk27.pair_apply_plain(L, body, STENCIL_27, sep, stats)
 
 
 # ---------------------------------------------------------------------------
 # CUDA kernel: build (nvcc, at first use), bind (ctypes), launch
 # ---------------------------------------------------------------------------
 
-def _bind(lib: ctypes.CDLL) -> None:
-    for name in KERNEL_BODIES:
-        fn = getattr(lib, f"pair_packed_{name}")
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_float] * 3
-                       + [ctypes.POINTER(ctypes.c_float), ctypes.c_int,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+LIBRARY = KernelLibrary(
+    "pair_packed", ("pair_packed.cu", "walk27.cuh", "walk.cuh",
+                    "pair_bodies.cuh"),
+    lambda lib: walk27.bind(lib, "pair_packed", KERNEL_BODIES))
 
 
-LIBRARY = KernelLibrary("pair_packed", ("pair_packed.cu", "pair_bodies.cuh"),
-                        _bind)
+def kernel_attributes(name: str, wpb: int = walk27.MAX_WARPS):
+    return walk27.kernel_attributes(LIBRARY, "pair_packed", name, wpb)
 
 
-def pair_apply_kernel(launch: PackedLaunch, body: PairBody) -> torch.Tensor:
-    """Launch the CUDA kernel of ``body`` on PyTorch's current stream.
+def pair_apply_kernel(launch: Launch27, body: PairBody,
+                      stats: Optional[Dict] = None) -> torch.Tensor:
+    """Launch the CUDA kernel of ``body`` on PyTorch's current stream
+    (``walk27.pair_apply_kernel``)."""
+    return walk27.pair_apply_kernel(LIBRARY, "pair_packed", KERNEL_BODIES,
+                                    LAUNCHES, launch, body, stats)
 
-    Returns (n_sum + n_max, C*K).  Raises on anything the kernel does not
-    take and on a launch error."""
-    L = launch
-    if body.name not in KERNEL_BODIES:
-        raise ValueError(f"pair_packed: no kernel for body {body.name!r} "
-                         f"(have {KERNEL_BODIES})")
-    F = len(body.fields)
-    C = L.cdim[0] * L.cdim[1] * L.cdim[2]
-    dev = L.Xi.device
-    for name, t, dt in (("counts", L.counts, I32), ("Xi", L.Xi, F32),
-                        ("Xa", L.Xa, F32)):
-        if not t.is_cuda or t.device != dev or t.dtype != dt \
-                or not t.is_contiguous():
-            raise ValueError(f"pair_apply_kernel: {name} must be a "
-                             f"contiguous {dt} tensor on {dev}")
-    if tuple(L.Xi.shape) != (F, C * L.K) or tuple(L.Xa.shape) != (
-            C * L.K, F) or tuple(L.counts.shape) != (C,):
-        raise ValueError("pair_apply_kernel: inconsistent shapes")
-    fn = getattr(LIBRARY.load(), f"pair_packed_{body.name}")
-    out = torch.zeros((body.n_sum + body.n_max, C * L.K), dtype=F32,
-                      device=dev)
-    prm = (ctypes.c_float * max(1, len(body.params)))(*body.params)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(L.counts.data_ptr(), L.Xi.data_ptr(), L.Xa.data_ptr(),
-             out.data_ptr(), *L.cdim, L.K, F, *L.edge, prm,
-             len(body.params), stream)
-    if err != 0:
-        raise RuntimeError(f"pair_packed_{body.name}: CUDA error {err}")
-    LAUNCHES[body.name] = LAUNCHES.get(body.name, 0) + 1
-    return out
+
+def walk_filter(launch: Launch27, body: PairBody) -> Dict:
+    """``walk27.walk_filter`` with this engine's order and separation."""
+    return walk27.walk_filter(launch, body, STENCIL_27, sep)

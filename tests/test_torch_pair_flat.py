@@ -219,7 +219,7 @@ def test_library_key_follows_sources_flags_and_compiler(tmp_path,
     NVCC_FLAGS and with the compiler's version, so a stale binary is never
     loaded."""
     assert pair_flat.LIBRARY.sources == ("pair_flat.cu", "pair_bodies.cuh",
-                                         "probe_bodies.cuh")
+                                         "probe_bodies.cuh", "walk.cuh")
     check_library_key(pair_flat.LIBRARY, tmp_path, monkeypatch)
 
 

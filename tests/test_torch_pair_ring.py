@@ -7,7 +7,9 @@ on the CPU) goes through the port's density, gradient and force loops with
 ``hydro_pallas`` loops with ``engine="ring", interpret=True``: sums
 within 5e-5 of max (the 27 offsets are summed in another order), maxes
 within 1e-6 relative, min_ngb_time_bin exact (the outputs the loops do
-not multiply by the mask, on the live slots).  The raw outputs of
+not multiply by the mask, on the live slots), and with a seeded ~10%
+active subset (``active_i``) every output on its slots, which the port
+evaluates alone and the reference in full.  The raw outputs of
 ``pair_apply`` equal the reference kernel's on every live slot (-inf
 where a slot accepted no pair) and read 0 on every empty slot, which the
 reference kernel evaluates with its pad fills and its loops discard.
@@ -27,9 +29,10 @@ from swift_subtask_dev_tpu.ops import hydro_pallas, pallas_pairs
 from swift_subtask_dev_tpu_torch.examples import sedov
 from swift_subtask_dev_tpu_torch.interop import state_from_reference
 from swift_subtask_dev_tpu_torch.models.sph.sphenix import CosmoFactors
-from swift_subtask_dev_tpu_torch.ops import hydro_flat, pair_packed, pair_ring
+from swift_subtask_dev_tpu_torch.ops import hydro_flat, pair_ring, walk27
 
 from test_torch_pair_flat import check_library_key
+from test_torch_pair_packed import active_subset
 
 CPU = torch.device("cpu")
 LOOPS = ["density_loop", "gradient_loop", "force_loop"]
@@ -63,31 +66,38 @@ def _maxes_match(a, b, what):
                   / np.maximum(np.abs(a[f]), 1e-30)) <= 1e-6, what
 
 
+@pytest.mark.parametrize("active", [False, True])
 @pytest.mark.parametrize("loop", LOOPS)
-def test_ring_loop_matches_reference(blast, loop):
+def test_ring_loop_matches_reference(blast, loop, active):
     eng, s, g_ref, P_ref = blast
     assert eng.grid.cdim == (3, 3, 3) and eng.grid.K == 208
     assert len(np.unique(s["time_bin"][s["mask"] > 0])) >= 2
     js = {k: jnp.asarray(v) for k, v in s.items()}
     st = state_from_reference(s, CPU)
+    live = s["mask"] > 0
+    # with a subset, only its slots (the only ones the port evaluates;
+    # the engine merges no other)
+    on = active_subset(s) if active else live
+    act = torch.from_numpy(on) if active else None
     if loop == "density_loop":
         ref = hydro_pallas.density_loop(g_ref, js, P_ref, interpret=True,
                                         engine="ring")
-        port = hydro_flat.density_loop(eng.grid, st, eng.sph, engine="ring")
+        port = hydro_flat.density_loop(eng.grid, st, eng.sph, active_i=act,
+                                       engine="ring")
     else:
         ref = getattr(hydro_pallas, loop)(g_ref, js, P_ref, RefCF.no_cosmo(),
                                           interpret=True, engine="ring")
         port = getattr(hydro_flat, loop)(eng.grid, st, eng.sph,
                                          CosmoFactors.no_cosmo(),
-                                         engine="ring")
+                                         active_i=act, engine="ring")
     assert ref.keys() == port.keys()
-    live = s["mask"] > 0
     for k in ref:
         a, b = np.asarray(ref[k]), port[k].numpy()
-        if k in ("min_ngb_time_bin", "v_sig", "alpha_visc_max_ngb"):
+        if active or k in ("min_ngb_time_bin", "v_sig",
+                           "alpha_visc_max_ngb"):
             # not multiplied by the mask: the empty slots hold what each
             # kernel leaves there (the engine merges live particles only)
-            a, b = a[live], b[live]
+            a, b = a[on], b[on]
         if k == "min_ngb_time_bin":
             assert a.dtype == b.dtype and np.array_equal(a, b)
         elif k in ("v_sig", "alpha_visc_max_ngb"):
@@ -198,7 +208,7 @@ def test_offsets_and_neighbours_match_the_padded_grid():
         ref = (((px - 1) % cdim[0]) * cdim[1] + (py - 1) % cdim[1]) \
             * cdim[2] + (pz - 1) % cdim[2]
         assert np.array_equal(
-            pair_packed.nbr_cell_table(cdim, pair_ring.OFFSETS), ref)
+            walk27.nbr_cell_table(cdim, pair_ring.OFFSETS), ref)
 
 
 def test_dispatch_plain_on_cpu_and_no_fallback(blast):
@@ -224,5 +234,6 @@ def test_dispatch_plain_on_cpu_and_no_fallback(blast):
 
 def test_library_key_follows_sources_flags_and_compiler(tmp_path,
                                                         monkeypatch):
-    assert pair_ring.LIBRARY.sources == ("pair_ring.cu", "pair_bodies.cuh")
+    assert pair_ring.LIBRARY.sources == ("pair_ring.cu", "walk27.cuh",
+                                         "walk.cuh", "pair_bodies.cuh")
     check_library_key(pair_ring.LIBRARY, tmp_path, monkeypatch)

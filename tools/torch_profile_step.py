@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch/CUDA port's main path, on one GPU.
+"""Where the time goes in the PyTorch/CUDA port, on one GPU.
 
-    python3 tools/torch_profile_step.py [--out PATH]
+    python3 tools/torch_profile_step.py [--path main|sedov-a|sedov-c]
+        [--out PATH]
 
-Runs bench.py's default geometry (2*80^3 = 1,024,000 particles, SPHENIX
-+ P3M on the flat column grid, mesh_N = 192, the PM mesh on its own
-step) through the port, and
-measures, in this order:
+``--path main`` (the default) runs bench.py's default geometry (2*80^3 =
+1,024,000 particles, SPHENIX + P3M on the flat column grid, mesh_N =
+192, the PM mesh on its own step) through the port, and measures, in
+this order:
 
 1. init: ``init_particles()`` wall time (cold: first use of every torch
    and CUDA kernel), its ghost iterations, and peak device memory over
@@ -28,8 +29,24 @@ measures, in this order:
 6. mesh: three ``_mesh_boundary()`` calls (TSC deposit, FFTs, gather),
    ms each.
 
+``--path sedov-a`` and ``--path sedov-c`` run chip_smoke.py's Sedov
+paths A (27-cell grid, backend "pallas": the packed kernel K2, no
+limiter) and C (backend "pallas_ring": the ring-buffer kernel K3, the
+timestep limiter and its 27-cell wake scan) at 2*51^3 = 265,302
+particles: init_particles(), steps up to t = 0.025 (half the run; the
+blast has spread and the bins are populated), then (1) steady: three
+windows of 64 steps (host clock, synchronised), ms per step; (2) trace:
+``torch.profiler`` over 32 steps: device kernels per step, busy share,
+each pair body's device ms and launches per step, and all other device
+kernels' ms and count per step; (3) phases over 64 steps (each
+synchronised at both edges: ghost, density, gradient and force loops,
+the rebucket check, kick/timestep, the wake scan on path C; inside them
+the pair engine's ``prepare`` and kernel launch), ms per step.
+
 The last line printed is a JSON object with every number; it is also
-written to ``--out`` (default ``chiprun_out/torch_profile_step.json``).  Imports nothing of JAX.
+written to ``--out`` (default ``chiprun_out/torch_profile_step.json``,
+``torch_profile_<path>.json`` for a Sedov path).  Imports nothing of
+JAX.
 """
 
 import argparse
@@ -46,10 +63,27 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 from swift_subtask_dev_tpu_torch import engine as eng_mod  # noqa: E402
-from swift_subtask_dev_tpu_torch.ops import hydro_flat, pair_flat  # noqa
+from swift_subtask_dev_tpu_torch.ops import (hydro_flat, pair_flat,  # noqa
+                                             pair_packed, pair_ring,
+                                             stencil)
 
 N1, MESH_N = 80, 192      # bench.py's default geometry
 BODIES = ("Density", "Gradient", "ForceGravity", "Force", "P2PGravity")
+# the Sedov paths: (backend, limiter, pair engine module)
+SEDOV_PATHS = {"sedov-a": ("pallas", False, pair_packed),
+               "sedov-c": ("pallas_ring", True, pair_ring)}
+SEDOV_N, SEDOV_T_END, SEDOV_T_WARM = 51, 0.05, 0.025
+
+
+def pair_body(kernel_name: str):
+    """The pair body a device kernel evaluates (K1's or the 27-cell
+    walk's), or None for any other kernel."""
+    for b in BODIES:
+        if f"pair_flat_kernel<{b}," in kernel_name or (
+                "walk27_kernel<" in kernel_name
+                and f", {b}," in kernel_name):
+            return b
+    return None
 
 
 def card_name() -> str:
@@ -87,14 +121,18 @@ def _merged_busy(intervals):
     return busy
 
 
-def trace(eng, n_steps=4):
+def trace(eng, n_steps=4, run=None):
+    """Device kernels of ``run()`` (default: ``n_steps`` fixed steps)."""
     from torch.profiler import ProfilerActivity, profile
+    if run is None:
+        def run():
+            eng.run_fixed_dt(n_steps, per_launch=n_steps)
     torch.cuda.synchronize()
     # device activity only: host-side op tracing would slow the launches
     # and so lower the busy share it is meant to read
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run_fixed_dt(n_steps, per_launch=n_steps)
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events()
@@ -103,16 +141,17 @@ def trace(eng, n_steps=4):
     intervals = [(e.time_range.start, e.time_range.end) for e in kernels]
     busy_ms = _merged_busy(intervals) / 1e3
     per_body = {b: 0.0 for b in BODIES}
+    per_body_n = {b: 0 for b in BODIES}
     other_ms, other_n = 0.0, 0
     for e in kernels:
         ms = e.time_range.elapsed_us() / 1e3
-        body = next((b for b in BODIES
-                     if f"pair_flat_kernel<{b}," in e.name), None)
+        body = pair_body(e.name)
         if body is None:
             other_ms += ms
             other_n += 1
         else:
             per_body[body] += ms
+            per_body_n[body] += 1
     return {
         "steps": n_steps, "wall_ms": wall_ms,
         "device_kernels_per_step": len(kernels) / n_steps,
@@ -120,6 +159,8 @@ def trace(eng, n_steps=4):
         "busy_share": busy_ms / wall_ms if wall_ms > 0 else None,
         "pair_kernel_ms_per_step": {b: v / n_steps
                                     for b, v in per_body.items()},
+        "pair_kernel_launches_per_step": {b: v / n_steps
+                                          for b, v in per_body_n.items()},
         "other_kernels_ms_per_step": other_ms / n_steps,
         "other_kernels_per_step": other_n / n_steps,
     }
@@ -215,19 +256,87 @@ def mesh(eng, reps=3):
     return {"mesh_update_ms": times}
 
 
+def sedov_phases(eng, module, n_steps=64):
+    """ms per step of the Sedov step's phases over ``n_steps`` steps."""
+    pt = PhaseTimer()
+    pt.wrap(eng_mod, "_ghost_density", "ghost")
+    pt.wrap(hydro_flat, "density_loop", "density_loop")
+    pt.wrap(hydro_flat, "gradient_loop", "gradient_loop")
+    pt.wrap(hydro_flat, "force_loop", "force_loop")
+    pt.wrap(eng_mod, "_rebucket_phase", "rebucket_phase")
+    pt.wrap(eng_mod, "_gas_kdk", "kick_timestep")
+    pt.wrap(stencil, "timebin_loop", "wake_scan")
+    pt.wrap(module, "prepare", "pair_prepare")
+    pt.wrap(module, "pair_apply_kernel", "pair_kernel")
+    try:
+        t0 = sync_s()
+        n_steps = eng.run(max_steps=n_steps)
+        wall = 1e3 * (sync_s() - t0)
+    finally:
+        pt.restore()
+    return {"steps": n_steps, "ms_per_step": wall / n_steps,
+            "phase_ms_per_step": {k: v / n_steps for k, v in pt.ms.items()},
+            "phase_calls": pt.calls}
+
+
+def sedov_profile(path, card, device):
+    """Path A or C of chip_smoke.py's Sedov blast, from half its run."""
+    from swift_subtask_dev_tpu_torch.examples import sedov
+    backend, limiter, module = SEDOV_PATHS[path]
+    module.LIBRARY.load()
+    eng = sedov.make_engine(SEDOV_N, SEDOV_T_END, backend, limiter, device)
+    n = int(eng.state["mask"].sum())
+    res = {"card": card, "torch": torch.__version__,
+           "cuda": torch.version.cuda, "path": path, "backend": backend,
+           "limiter": limiter, "n_particles": n,
+           "cdim": list(eng.grid.cdim), "K": eng.grid.K}
+    t0 = sync_s()
+    eng.init_particles()
+    warm = eng.run(SEDOV_T_WARM)
+    res["warm"] = {"seconds": sync_s() - t0, "steps": warm,
+                   "t": eng.time}
+    print("warm", json.dumps(res["warm"]), flush=True)
+    rates = []
+    for _ in range(3):
+        t0 = sync_s()
+        steps = eng.run(max_steps=64)
+        dt = sync_s() - t0
+        rates.append({"seconds": dt, "steps": steps,
+                      "ms_per_step": 1e3 * dt / steps})
+    res["steady"] = rates
+    print("steady", json.dumps(res["steady"]), flush=True)
+    res["trace"] = trace(eng, 32, lambda: eng.run(max_steps=32))
+    print("trace", json.dumps(res["trace"]), flush=True)
+    res["phases"] = sedov_phases(eng, module)
+    print("phases", json.dumps(res["phases"]), flush=True)
+    res["t"] = eng.time
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", default=os.path.join(
-        ROOT, "chiprun_out", "torch_profile_step.json"))
+    ap.add_argument("--path", default="main",
+                    choices=["main"] + sorted(SEDOV_PATHS))
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    out = args.out or os.path.join(
+        ROOT, "chiprun_out", "torch_profile_step.json" if args.path == "main"
+        else f"torch_profile_{args.path}.json")
     if not torch.cuda.is_available():
         print("torch_profile_step: needs a CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import bench_engine
     card = card_name()
     print(card)
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.path != "main":
+        res = sedov_profile(args.path, card, device)
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(res, f, indent=1)
+        print(json.dumps(res))
+        return 0
+    from chip_smoke import bench_engine
     pair_flat.LIBRARY.load()
 
     torch.cuda.reset_peak_memory_stats()
@@ -253,8 +362,8 @@ def main():
     print("rebucket", json.dumps(res["rebucket"]), flush=True)
     res["mesh"] = mesh(eng)
     print("mesh", json.dumps(res["mesh"]), flush=True)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as f:
         json.dump(res, f, indent=1)
     print(json.dumps(res))
     return 0
