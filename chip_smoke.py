@@ -73,7 +73,28 @@ Phases (any failure ends the script with a non-zero exit and no result):
    plain versions on the bench geometry (93,312 particles), then its
    entry point (ms per body).  The launch counters are reset just before
    each entry point and read just after.
-9. Prints {"kernels": [...]} (each kernel's launches on its path, errors,
+9. SmallCosmoVolume (gas + DM, comoving, P3M with split mesh kicks,
+   constant-Lambda cooling, flat backend): the port's example at
+   SWIFT's SmallCosmoVolume_hydro size (2 x 64^3 = 524,288 particles in
+   100 Mpc/h), init_particles() and run() with the launch counters
+   reset just before (at most COSMO_STEPS steps; this IC reaches a = 1
+   in fewer).  Checks: finite state, every K1 body of
+   the path launched (density, gradient, force, P2P on one species and
+   across species), a advanced, physical u at or above the minimal
+   internal energy, a float64 brute-force density on 1,024 gas particles
+   active in the last step (<= 1e-4), the float64 brute-force
+   erfc-truncated short-range acceleration (within r_cut over periodic
+   images) of 1,024 DM from the gas and of 1,024 gas from the DM against
+   the port's cross-species P2P loop (<= 1e-4 of max); then the
+   cross-species kernel against its plain version in both directions at
+   the path's final state (tolerances of phase 3, pairs per warp equal,
+   a statistics launch and a second launch bit for bit).
+10. DMO: bench.py's BENCH_MODE=dmo geometry (1,024,000 particles,
+   mesh_N 192, headroom 1.4) through DMEngine, init_particles() and
+   DMO_STEPS steps: ms per step and particle-steps/s, only K1's P2P body
+   launched, and the brute-force acceleration check of phase 9 on 1,024
+   particles.
+11. Prints {"kernels": [...]} (each kernel's launches on its path, errors,
    times, and its bound: the larger of the bytes it must move -- the
    particles' fields it reads, the output slots it writes and the index
    words it reads -- over 3.35 TB/s and its FP32 operations on the run's
@@ -103,6 +124,12 @@ PROBE_SOURCE = "swift_subtask_dev_tpu_torch/csrc/probe_bodies.cuh"
 PROBE_REPLACES = "tools/probe_kernel.py:26"
 
 SEDOV_N = 51            # 2 * 51^3 = 265,302 particles
+COSMO_STEPS = 32        # the SmallCosmoVolume phase's most steps
+# the K1 bodies the SmallCosmoVolume path runs (the multi engine does not
+# fuse gravity into the force pass)
+COSMO_BODIES = ("density", "gradient", "force", "p2p_gravity",
+                "p2p_gravity_cross")
+DMO_STEPS = 8
 # the example's default end time: the shock radius is 0.347 (18 h of
 # the IC); much later the shell nears the periodic box's faces
 SEDOV_T_END = 0.05
@@ -357,10 +384,14 @@ def entry(name, route_source, replaces, launches, max_abs, ms, plain_ms,
 def flat_work(launch, body):
     """Live particles, written slots and index bytes of one flat launch:
     the kernel reads each column's live-tile count and the 9 x 2 range
-    words of each live tile, and writes all 128 slots of a live tile."""
+    words of each live tile, and writes all 128 slots of a live tile.  A
+    cross-species launch also reads the j species' live rows."""
     from swift_subtask_dev_tpu_torch.ops import pair_flat
     live_tiles = int(launch.tcounts.sum())
-    n_live = int((launch.Xi[body.fields.index("mask")] > 0).sum())
+    mask = body.fields.index("mask")
+    n_live = int((launch.Xi[mask] > 0).sum())
+    if launch.cross:
+        n_live += int((launch.Xa[:, mask] > 0).sum())
     return (n_live, live_tiles * pair_flat.LANES,
             4 * (launch.tcounts.numel() + 18 * live_tiles))
 
@@ -448,28 +479,48 @@ def hold_walk(module, launch, body, out_k, plain_stats, card):
         check(again, f"{body.name}: two launches gave other bits")
 
 
-def brute_density(eng, P, n_sample=1024, seed=0):
-    """float64 brute-force SPH density of sampled live particles at their
-    converged h (all N particles as neighbours, periodic minimum image),
-    against the engine's rho: returns (max relative error, sample mean)."""
+def live_f64(grid, s):
+    """(positions (N, 3), live mask (C*K,)) of a tiled state, float64,
+    wrapped into the box."""
     import torch
-    s = eng.state
     dev = s["mask"].device
     live = (s["mask"] > 0).reshape(-1)
-    corners = torch.as_tensor(eng.grid.cell_corners(), dtype=torch.float64,
+    corners = torch.as_tensor(grid.cell_corners(), dtype=torch.float64,
                               device=dev)
     pos = (corners[:, None, :] + s["off"].double()).reshape(-1, 3)[live]
+    box = torch.tensor(grid.box, dtype=torch.float64, device=dev)
+    return torch.remainder(pos, box), live
+
+
+def sample(n, n_sample, seed, dev, among=None):
+    """``n_sample`` seeded indices of range(n) (of ``among``'s true
+    entries when given)."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    pool = (torch.arange(n) if among is None
+            else torch.nonzero(among.cpu()).reshape(-1))
+    return pool[torch.randperm(pool.numel(), generator=g)[:n_sample]].to(dev)
+
+
+def brute_density(eng, P, n_sample=1024, seed=0, state=None, among=None):
+    """float64 brute-force SPH density of sampled live particles at their
+    converged h (all N particles as neighbours, periodic minimum image),
+    against the engine's rho: returns (max relative error, sample mean).
+    ``state`` defaults to the engine's; ``among`` ((N,) bool over the live
+    particles) limits the sample."""
+    import torch
+    s = eng.state if state is None else state
+    dev = s["mask"].device
+    pos, live = live_f64(eng.grid, s)
     box = torch.tensor(eng.grid.box, dtype=torch.float64, device=dev)
-    pos = torch.remainder(pos, box)
     m = s["m"].reshape(-1)[live].double()
     h = s["h"].reshape(-1)[live].double()
     rho = s["rho"].reshape(-1)[live].double()
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    idx = torch.randperm(pos.shape[0], generator=g)[:n_sample].to(dev)
+    idx = sample(pos.shape[0], n_sample, seed, dev, among)
     gamma = P.kernel.gamma
     norm = 16.0 / math.pi
     out = []
-    for c in range(0, n_sample, 32):
+    for c in range(0, idx.numel(), 32):
         i = idx[c:c + 32]
         d = pos[i][:, None, :] - pos[None, :, :]
         d = d - box * torch.round(d / box)
@@ -761,6 +812,224 @@ def phase_sedov_ring(device, card):
                    RING_REPLACES, card)
 
 
+def brute_p2p(grid, s_i, s_j, G, H, r_s, r_cut, n_sample=1024, seed=1):
+    """float64 brute-force short-range acceleration of ``n_sample`` live
+    particles of ``s_i`` from every live particle of ``s_j``: the softened
+    kernel (H = the pair's softening) times the exact erfc truncation
+    (torch.special.erfc), pairs within r_cut over periodic images (the
+    minimum image: r_cut < box / 2).  Returns (sample slots of s_i in its
+    live order, (n, 3) accelerations)."""
+    import torch
+    pos_i, _ = live_f64(grid, s_i)
+    pos_j, live_j = live_f64(grid, s_j)
+    m_j = s_j["m"].reshape(-1)[live_j].double()
+    dev = pos_i.device
+    box = torch.tensor(grid.box, dtype=torch.float64, device=dev)
+    idx = sample(pos_i.shape[0], n_sample, seed, dev)
+    out = []
+    for c in range(0, idx.numel(), 16):
+        d = pos_i[idx[c:c + 16]][:, None, :] - pos_j[None, :, :]
+        d = d - box * torch.round(d / box)
+        r2 = (d * d).sum(-1)
+        r = torch.sqrt(r2)
+        u = r / H
+        W = ((((21.0 * u - 90.0) * u + 140.0) * u - 84.0) * u) * u + 14.0
+        F = torch.where(u < 1.0, W / H ** 3,
+                        1.0 / torch.clamp_min(r2 * r, 1e-300))
+        x = 0.5 * r / r_s
+        F = F * (torch.special.erfc(x)
+                 + 2.0 / math.sqrt(math.pi) * x * torch.exp(-x * x))
+        ok = (r2 > 0) & (r2 < r_cut * r_cut)
+        w = torch.where(ok, -G * m_j[None, :] * F, 0.0)
+        out.append((w[..., None] * d).sum(1))
+    return idx, torch.cat(out)
+
+
+def hold_p2p_brute(label, grid, s_i, s_j, G, H_i, H_j, r_s, r_cut, card):
+    """The port's P2P loop (K1: one-species when ``s_j`` is ``s_i``, else
+    cross-species) on ``s_i`` from ``s_j`` against the float64 brute
+    force: max error over 1024 sampled particles within 1e-4 of the
+    largest sampled acceleration."""
+    from swift_subtask_dev_tpu_torch.ops import hydro_flat
+    acc, _ = hydro_flat.p2p_gravity_loop(grid, s_i, [s_j], G, H_i, r_s,
+                                         r_cut, H_soft_j=[H_j])
+    live = (s_i["mask"] > 0).reshape(-1)
+    idx, ref = brute_p2p(grid, s_i, s_j, G, max(H_i, H_j), r_s, r_cut)
+    got = acc.reshape(-1, 3)[live][idx].double()
+    err = (got - ref).abs().max().item() / ref.abs().max().item()
+    print(f"  short-range acceleration of {idx.numel()} {label}: float64 "
+          f"brute force, max |a| {ref.abs().max().item():.6e}, "
+          f"max error {err:.3e} of it [{card}]")
+    check(err <= 1e-4, f"{label}: the P2P acceleration disagrees with the "
+          "float64 brute force")
+
+
+def phase_cosmo(device, card, n_side=None):
+    """The gas + DM comoving volume (SmallCosmoVolume_hydro's 64^3 + 64^3
+    in 100 Mpc/h; ``n_side`` cuts it at the same spacing) through the
+    port's example: init_particles() and run() for at most COSMO_STEPS
+    steps (the run reaches a_end = 1 before that), the launch counters
+    reset just before."""
+    import torch
+    from swift_subtask_dev_tpu_torch.examples import small_cosmo_volume as scv
+    from swift_subtask_dev_tpu_torch.ops import hydro_flat, pair_flat
+    n_side = n_side or scv.N_SIDE
+    eng, solver, ic = scv.make_engine(n_side, scv.BOX * n_side / scv.N_SIDE,
+                                      device=device)
+    gas, dm = eng.state["gas"], eng.state["dm"]
+    n = int((gas["mask"] > 0).sum()) + int((dm["mask"] > 0).sum())
+    spacing = ic["box"][0] / n_side
+    print(f"phase 9 (SmallCosmoVolume): {n} particles, box "
+          f"{ic['box'][0]:.4f} Mpc, grid cdim={list(eng.grid.cdim)} "
+          f"K={eng.grid.K}, r_cut {solver.pm.r_cut:.4f} Mpc, mesh_N "
+          f"{scv.MESH_N}; rms Zel'dovich displacement "
+          f"{ic['psi_rms'] / spacing:.6f} mean spacings")
+    check(n == 2 * n_side ** 3, f"expected {2 * n_side ** 3} particles")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pair_flat.reset_launches()
+    t0 = time.perf_counter()
+    diag = eng.init_particles()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    seen = {"n_active": 0, "bins": set()}
+
+    def on_step(d):
+        seen["n_active"] += int(d["n_active"])
+        seen["bins"] |= {b for b, c in enumerate(d["bin_counts"].tolist())
+                         if c}
+    # up to COSMO_STEPS steps; the run ends earlier when it reaches a_end
+    steps = eng.run(max_steps=COSMO_STEPS, on_step=on_step)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(pair_flat.LAUNCHES)
+    a_now = eng.cosmology.a_of_ti(eng.timeline.ti_current)
+    n_active, bins = seen["n_active"], seen["bins"]
+    print(f"  init_particles {t1 - t0:.3f} s (ghost iterations "
+          f"{diag['n_ghost_iter']}); {steps} steps in {t2 - t1:.3f} s"
+          f" ({1e3 * (t2 - t1) / steps:.2f} ms/step, "
+          f"{n_active / (t2 - t1):.1f} active-particle updates/s, sum "
+          f"n_active {n_active}), a {scv.A_BEGIN} -> {a_now:.6f}, bins "
+          f"{sorted(bins)}, mesh updates {eng.n_mesh_updates}, re-grids "
+          f"{eng.n_regrids} [{card}]")
+    print(f"  peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+    print(f"  kernel launches in the run: {launches}")
+    for name, sp in eng.state.items():
+        bad = finite_state(sp)
+        check(not bad, f"{name}: non-finite state fields: {bad}")
+    for name in COSMO_BODIES:
+        check(launches.get(name, 0) > 0, f"pair_flat_{name}: kernel never "
+              "launched on the SmallCosmoVolume path")
+    check(a_now > scv.A_BEGIN, "the run did not advance a")
+    gas, dm = eng.state["gas"], eng.state["dm"]
+    live = gas["mask"] > 0
+    a_u = eng.cosmology.factors_at(
+        eng.timeline.ti_current).a_factor_internal_energy
+    u_phys = float(gas["u_full"][live].double().min()) * a_u
+    print(f"  min physical u {u_phys:.6e} (minimal internal energy "
+          f"{scv.U_MIN})")
+    check(u_phys >= scv.U_MIN, "u fell below the minimal internal energy")
+    # rho of the particles active in the last step is at their current
+    # positions and h (every particle drifted to now)
+    act = live & torch.as_tensor(
+        eng.timeline.active_bins_mask(), device=device)[
+        gas["time_bin"].clamp(0, 56).long()]
+    err, ref_mean = brute_density(eng, eng.sph, state=gas,
+                                  among=act.reshape(-1)[live.reshape(-1)])
+    print(f"  brute-force float64 density on {min(1024, int(act.sum()))} "
+          f"gas particles active in the last step (of {int(act.sum())}): "
+          f"mean {ref_mean:.6e}, max relative error {err:.3e}")
+    check(err <= 1e-4, "density disagrees with the float64 brute force")
+    gp = solver.gp
+    H_gas, H_dm = solver._H_list(2)
+    hold_p2p_brute("DM from the gas", eng.grid, dm, gas, gp.G, H_dm, H_gas,
+                   solver.pm.r_s, solver.pm.r_cut, card)
+    hold_p2p_brute("gas from the DM", eng.grid, gas, dm, gp.G, H_gas, H_dm,
+                   solver.pm.r_s, solver.pm.r_cut, card)
+
+    # the cross-species kernel against its plain version, both directions,
+    # at the path's shapes (the final state)
+    kernel = None
+    for i, j, H_i, H_j in (("gas", "dm", H_gas, H_dm),
+                           ("dm", "gas", H_dm, H_gas)):
+        pp = hydro_flat.p2p_gravity_pass(
+            eng.state[i], gp.G, max(H_i, H_j), solver.pm.r_s,
+            solver.pm.r_cut, s_j=eng.state[j])
+        launch, body = pair_flat.prepare(eng.grid, pp), pp.body
+        print(f"  cross-species P2P, {i} from {j} (W {launch.W}, Wj "
+              f"{launch.Wj}):")
+        ms, plain_ms, max_abs, pairs = hold_against_plain(
+            pair_flat, launch, body, card)
+        same = bool(torch.equal(pair_flat.pair_apply_kernel(launch, body),
+                                pair_flat.pair_apply_kernel(launch, body)))
+        print(f"    two launches on the same inputs: "
+              f"{'bit-identical' if same else 'DIFFER'}")
+        check(same, "p2p_gravity_cross: two launches gave other bits")
+        b_ms, b_by = bound(body, flat_work(launch, body), pairs)
+        print(f"    bound {b_ms:.4f} ms ({b_by}); the kernel at "
+              f"{ms / b_ms:.1f}x it [{card}]")
+        if kernel is None:
+            kernel = entry("pair_flat_p2p_gravity_cross", FLAT_SOURCE,
+                           FLAT_REPLACES, launches["p2p_gravity_cross"],
+                           max_abs, ms, plain_ms, b_ms, b_by)
+    return [kernel]
+
+
+def phase_dmo(device, card, n1=80, mesh_N=192):
+    """bench.py's BENCH_MODE=dmo geometry (n1 = 80: 1,024,000 particles,
+    mesh_N = 192) through the port's DMEngine: init_particles() and
+    DMO_STEPS steps (counters reset just before)."""
+    import torch
+    from swift_subtask_dev_tpu_torch.engine import DMEngine, EngineConfig
+    from swift_subtask_dev_tpu_torch.grid import CellGrid
+    from swift_subtask_dev_tpu_torch.ics import uniform_box_ic
+    from swift_subtask_dev_tpu_torch.models.gravity import (GravityParams,
+                                                            GravitySolver)
+    from swift_subtask_dev_tpu_torch.ops import pair_flat
+    ic = uniform_box_ic(n=n1, jitter=0.2, seed=3)
+    gp = GravityParams(G=1.0, eps=0.5 / n1, mesh_N=mesh_N)
+    r_cut = gp.r_cut_ratio * gp.a_smooth * 1.0 / gp.mesh_N
+    grid = CellGrid.build_columns(ic["box"], interaction_range=r_cut * 1.25,
+                                  pos=ic["pos"], headroom=1.4)
+    solver = GravitySolver(gp, grid, device=device)
+    eng = DMEngine(grid, EngineConfig(dt_min=1e-9, dt_max=2e-4,
+                                      eta_grav=gp.eta,
+                                      p2p_reach=solver.pm.r_cut,
+                                      mesh_dt_max=64 * 2e-4),
+                   0.0, 1.0, gravity_fn=solver.gas_short_range_fn(),
+                   eps_soft=gp.eps, mesh_fn=solver.gas_mesh_fn(),
+                   mesh_dt_scale=solver.pm.r_s, device=device)
+    eng.solver_builder = lambda g: GravitySolver(gp, g, device=device)
+    eng.load_dm(ic["pos"], ic["m"], ic["v"])
+    n = int((eng.state["mask"] > 0).sum())
+    print(f"phase 10 (DMO): {n} particles, grid cdim={list(grid.cdim)} "
+          f"K={grid.K}, mesh_N {mesh_N}")
+    torch.cuda.synchronize()
+    pair_flat.reset_launches()
+    t0 = time.perf_counter()
+    eng.init_particles()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(DMO_STEPS):
+        eng.step()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(pair_flat.LAUNCHES)
+    print(f"  init_particles {t1 - t0:.3f} s; {DMO_STEPS} steps in "
+          f"{t2 - t1:.3f} s: {1e3 * (t2 - t1) / DMO_STEPS:.2f} ms/step, "
+          f"{DMO_STEPS * n / (t2 - t1):.1f} particle-steps/s, mesh "
+          f"updates {eng.n_mesh_updates} [{card}]")
+    print(f"  kernel launches in the run: {launches}")
+    bad = finite_state(eng.state)
+    check(not bad, f"non-finite state fields: {bad}")
+    check(launches.get("p2p_gravity", 0) > 0 and set(launches)
+          == {"p2p_gravity"}, f"the DMO path launched {launches}")
+    s = eng.state
+    hold_p2p_brute("DM", grid, s, s, gp.G, gp.H_soft, gp.H_soft,
+                   solver.pm.r_s, solver.pm.r_cut, card)
+
+
 def phase_vpu_peak(device, card):
     """T1: the FP32 probe against its plain version at 2 x 64 steps, then
     its entry point (the launch counter reset just before)."""
@@ -849,6 +1118,8 @@ def main():
         kernels += phase_sedov_ring(device, card)
         kernels += phase_vpu_peak(device, card)
         kernels += phase_probe_kernel(device, card)
+        kernels += phase_cosmo(device, card)
+        phase_dmo(device, card)
     except (PhaseFailed, ImportError, RuntimeError, ValueError,
             OSError, subprocess.SubprocessError) as e:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}",

@@ -3,9 +3,15 @@
 // Replaces: swift_subtask_dev_tpu/ops/pallas_flat.py:268 pair_apply (the
 // Pallas TPU kernel, inner `kernel` at :408) for its six bodies
 // (csrc/pair_bodies.cuh): density, gradient, force, force + gravity, P2P
-// gravity and the limiter's timebin scan.  The six synthetic bodies of the
-// cost probe (csrc/probe_bodies.cuh; tools/probe_kernel.py:26 main of the
-// reference) run on the same kernel through their own entries.
+// gravity and the limiter's timebin scan, and its cross-species mode
+// (`fields_j`, :280-281): the i slots come from one species' tiles (W
+// slots a column) and the j rows from another species' AoS (Wj rows a
+// column) on the same column grid, with range words over the j species'
+// blocks.  Only the staging of j rows reads Wj; the i tiles, the range
+// words and the statistics are laid out by the i side.  The six
+// synthetic bodies of the cost probe (csrc/probe_bodies.cuh;
+// tools/probe_kernel.py:26 main of the reference) run on the same kernel
+// through their own entries.
 //
 // What it computes: for each 128-slot i-tile of a z-sorted column and each
 // of the 9 neighbour columns, the j-rows named by the tile's two packed
@@ -105,8 +111,10 @@ constexpr int NSTAT = 8;
 __constant__ int OFF_DX[9] = {0, -1, -1, -1, 0, 0, 1, 1, 1};
 __constant__ int OFF_DY[9] = {0, -1, 0, 1, -1, 1, -1, 0, 1};
 
+// W: the i side's column capacity (tiles, outputs, statistics); Wj: the
+// j side's (the AoS the producer stages from; W for one species)
 struct Geometry {
-  int ncx, ncy, W, gran;
+  int ncx, ncy, W, Wj, gran;
   float ex, ey, boxz, inv_boxz;
 };
 
@@ -322,8 +330,9 @@ pair_flat_kernel(const int* __restrict__ tcounts,
         const int nr = min(CH, span_hi[pc.s] - pc.r0);
         const uint32_t bytes = (uint32_t)(nr * F * sizeof(float));
         mbar_arrive_tx(&full_bar[st], bytes);
-        bulk_load(smem + st * STAGE, Xa + ((size_t)jcol * g.W + pc.r0) * F,
-                  bytes, &full_bar[st]);
+        bulk_load(smem + st * STAGE,
+                  Xa + ((size_t)jcol * g.Wj + pc.r0) * F, bytes,
+                  &full_bar[st]);
       }
     }
     __syncwarp();
@@ -538,16 +547,17 @@ int start(dim3 grid, cudaStream_t stream, const int* tcounts,
 template <class Body>
 int launch(const int* tcounts, const int* ranges, const float* Xi,
            const float* Xa, float* out, int* stats, int ncx, int ncy,
-           int W, int gran, int F, float ex, float ey, float boxz,
+           int W, int Wj, int gran, int F, float ex, float ey, float boxz,
            float inv_boxz, const float* params, int n_params,
            void* stream) {
   // bulk copies need 16-byte aligned spans: Xa aligned, rows in multiples
-  // of 4 (F may be odd)
+  // of 4 (F may be odd); the range words' 16-bit counts of granules
   if (F != Body::F || n_params != Body::NP || n_params > MAX_PARAMS ||
-      W % LANES != 0 || ncx * ncy > 65535 || gran % 4 != 0 ||
+      W % LANES != 0 || gran <= 0 || Wj % gran != 0 ||
+      Wj / gran > 65535 || ncx * ncy > 65535 || gran % 4 != 0 ||
       (reinterpret_cast<uintptr_t>(Xa) & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  Geometry g{ncx, ncy, W, gran, ex, ey, boxz, inv_boxz};
+  Geometry g{ncx, ncy, W, Wj, gran, ex, ey, boxz, inv_boxz};
   BodyParams prm{};
   for (int i = 0; i < n_params; ++i) prm.v[i] = params[i];
   const dim3 grid(W / LANES, ncx * ncy);
@@ -595,11 +605,11 @@ int attributes(int* res) {
   extern "C" int pair_flat_##NAME(                                         \
       const int* tcounts, const int* ranges, const float* Xi,              \
       const float* Xa, float* out, int* stats, int ncx, int ncy, int W,    \
-      int gran, int F, float ex, float ey, float boxz, float inv_boxz,     \
-      const float* params, int n_params, void* stream) {                   \
+      int Wj, int gran, int F, float ex, float ey, float boxz,             \
+      float inv_boxz, const float* params, int n_params, void* stream) {   \
     return launch<BODY>(tcounts, ranges, Xi, Xa, out, stats, ncx, ncy, W,  \
-                        gran, F, ex, ey, boxz, inv_boxz, params, n_params, \
-                        stream);                                           \
+                        Wj, gran, F, ex, ey, boxz, inv_boxz, params,       \
+                        n_params, stream);                                 \
   }                                                                        \
   extern "C" int pair_flat_##NAME##_attributes(int* res) {                 \
     return attributes<BODY>(res);                                          \

@@ -23,8 +23,16 @@ A step that hits a capacity or coverage wall raises :class:`RegridNeeded`;
 live particles and retries (the step never modifies the tensors it is
 given, so the saved state is intact).
 
-Left out (see ROADMAP.md): particle splitting, cosmology, cooling, the
-xla and gather backends and multi-species runs.
+Cosmological runs (``cosmology=``, ``models.cosmology.Cosmology``) keep
+the integer timeline in log(a); every kick and drift of a step is an
+integral of the cosmology's f64 tables, folded on the host into the
+per-bin tables, and the step's ``CosmoFactors`` come from
+``Cosmology.factors_at``.  ``cooling_fn`` (``subgrid.cooling``) rewrites
+u_dt before kick2.  :class:`DMEngine` is the gravity-only engine
+(``dm_step``); the multi-species engine is ``engine_multi.MultiEngine``.
+
+Left out (see ROADMAP.md): particle splitting, external potentials, the
+xla and gather backends.
 """
 
 from __future__ import annotations
@@ -60,17 +68,23 @@ class StepTables(NamedTuple):
     """Per-step host-built tables indexed by time bin (0..56)."""
 
     active: torch.Tensor       # (57,) bool  — bin is active at ti_current
-    dt_half: torch.Tensor      # (57,) f32   — half-step per bin: every
-    # kick (velocity and thermal, kick1 and kick2) without cosmology
+    dt_kick1: torch.Tensor     # (57,) f32   — first-half kick of a new step
+    dt_kick2: torch.Tensor     # (57,) f32   — second-half kick of old step
+    dt_therm1: torch.Tensor    # (57,) f32   — the thermal kicks
+    dt_therm2: torch.Tensor    # (57,) f32
     dt_alpha: torch.Tensor     # (57,) f32   — full step length per bin
+    dt_therm_full: torch.Tensor  # (57,) f32 — thermal integral over the
+    # particle's full elapsed step [ti - dti, ti] (cooling's dt_therm)
     aligned_up: torch.Tensor   # (57,) bool  — bin b may be raised to b+1
-    dt_drift: float            # f32-rounded drift (and thermal drift)
+    dt_drift: float            # f32-rounded drift of this step
+    dt_therm_drift: float      # f32-rounded thermal drift
     max_bin: int               # ceiling from dt_max
-    time_base_inv: float       # f32-rounded 1/time_base (bin_from_dt)
+    time_base_inv: float       # f32-rounded 1/time_base (bin_from_dt;
+    # times H(a) in cosmological runs)
     wake_dv: torch.Tensor      # (57, 57) f32 — limiter wake kick:
     # [old_bin, new_bin] -> net dt of (undo old kick1) + (advance to the
     # new step start) + (new kick1), timestep_limit_part
-    # (timestep_limiter.h:64); velocity and thermal kicks alike
+    # (timestep_limiter.h:64)
     wake_du: torch.Tensor      # (57, 57) f32 — the thermal one
 
 
@@ -281,9 +295,9 @@ def _gas_kdk(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
     too_small, n_woken)."""
     # --- kick2: second half of the step that just ended ----------------------
     a_tot = s["a_hydro"] + s["a_grav"]
-    v_full = s["v_full"] + a_tot * T.dt_half[tb][..., None]
+    v_full = s["v_full"] + a_tot * T.dt_kick2[tb][..., None]
     s = {**s, "v_full": _where_active(active, v_full, s["v_full"])}
-    ke = sphenix.kick_extra(p, s, cosmo, T.dt_half[tb])
+    ke = sphenix.kick_extra(p, s, cosmo, T.dt_therm2[tb])
     for k in ("u_full", "u_dt"):
         s[k] = torch.where(active, ke[k], s[k])
 
@@ -323,9 +337,9 @@ def _gas_kdk(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
     # --- kick1: first half of the new step ----------------------------------
     tb1 = _tb_index(s["time_bin"])
     a_tot = s["a_hydro"] + s["a_grav"]
-    v_full = s["v_full"] + a_tot * T.dt_half[tb1][..., None]
+    v_full = s["v_full"] + a_tot * T.dt_kick1[tb1][..., None]
     s["v_full"] = _where_active(active, v_full, s["v_full"])
-    ke1 = sphenix.kick_extra(p, s, cosmo, T.dt_half[tb1])
+    ke1 = sphenix.kick_extra(p, s, cosmo, T.dt_therm1[tb1])
     for k in ("u_full", "u_dt"):
         s[k] = torch.where(active, ke1[k], s[k])
 
@@ -369,6 +383,16 @@ def apply_wake(p: SPHENIXParams, cosmo: CosmoFactors, s: Dict,
     return s
 
 
+def _apply_cooling(cooling_fn, cosmo, s, T, active, tb):
+    """Cooling rewrites u_dt before kick2 integrates it (runner_do_cooling,
+    cooling_cool_part), over each particle's full elapsed step."""
+    if cooling_fn is None:
+        return s
+    upd = cooling_fn(s, cosmo, T.dt_therm_full[tb])
+    return {**s, **{k: torch.where(active, v, s[k])
+                    for k, v in upd.items()}}
+
+
 def _bin_counts(mask_b, time_bin):
     bins = torch.where(mask_b, torch.clamp(time_bin, 0, NBINS), NBINS + 5)
     return torch.bincount(bins.reshape(-1).to(torch.int64),
@@ -377,9 +401,10 @@ def _bin_counts(mask_b, time_bin):
 
 def hydro_step(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
                gravity_fn: Optional[Callable], cosmo: CosmoFactors,
-               s: Dict, T: StepTables):
-    """One full engine step (drift -> loops -> KDK) for the gas.
-    Returns (new_state, diagnostics)."""
+               s: Dict, T: StepTables,
+               cooling_fn: Optional[Callable] = None):
+    """One full engine step (drift -> loops -> cooling -> KDK) for the
+    gas.  Returns (new_state, diagnostics)."""
     mask_b = s["mask"] > 0
     active = mask_b & T.active[_tb_index(s["time_bin"])]
 
@@ -388,7 +413,7 @@ def hydro_step(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
     s = {**s,
          "off": s["off"] + s["v_full"] * T.dt_drift * s["mask"][..., None],
          "v": s["v"] + a_tot * T.dt_drift}
-    s = sphenix.predict_extra(p, s, cosmo, T.dt_drift, T.dt_drift)
+    s = sphenix.predict_extra(p, s, cosmo, T.dt_drift, T.dt_therm_drift)
 
     # --- rebucket (space_rebuild analog) ------------------------------------
     reach = torch.clamp_min(
@@ -408,6 +433,7 @@ def hydro_step(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
         a_grav, pot = gravity_fn(s)
         s["a_grav"] = _where_active(active, a_grav, s["a_grav"])
         s["pot"] = torch.where(active, pot, s["pot"])
+    s = _apply_cooling(cooling_fn, cosmo, s, T, active, tb)
 
     s, too_small, n_woken = _gas_kdk(grid, p, cfg, cosmo, s, T, active,
                                      mask_b, tb)
@@ -426,7 +452,7 @@ def hydro_step(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
     return s, diag
 
 
-def multi_step(grid, p, cfg, gravity_fn, k, cosmo, s, T):
+def multi_step(grid, p, cfg, gravity_fn, k, cosmo, s, T, cooling_fn=None):
     """k engine steps at the fixed global timestep.
 
     Valid only while every particle stays in the same (maximal) bin; a
@@ -434,7 +460,8 @@ def multi_step(grid, p, cfg, gravity_fn, k, cosmo, s, T):
     reject the run without a read per step."""
     bad = torch.zeros((), dtype=torch.bool, device=s["mask"].device)
     for _ in range(k):
-        s, diag = hydro_step(grid, p, cfg, gravity_fn, cosmo, s, T)
+        s, diag = hydro_step(grid, p, cfg, gravity_fn, cosmo, s, T,
+                             cooling_fn)
         bins = torch.where(s["mask"] > 0, s["time_bin"], T.max_bin)
         bad = (bad | torch.any(bins != T.max_bin)
                | (diag["n_overflow"] > 0))
@@ -475,7 +502,7 @@ def _init_pass(grid, p, cfg, gravity_fn, cosmo, s, T):
     s["time_bin"] = torch.where(active, new_bin, 0)
 
     # first half-kick
-    dt_k1 = T.dt_half[_tb_index(s["time_bin"])]
+    dt_k1 = T.dt_kick1[_tb_index(s["time_bin"])]
     a_tot = s["a_hydro"] + s["a_grav"]
     s["v_full"] = s["v_full"] + a_tot * dt_k1[..., None] \
         * s["mask"][..., None]
@@ -491,6 +518,120 @@ def _init_pass(grid, p, cfg, gravity_fn, cosmo, s, T):
         "h_max_active": torch.amax(torch.where(active, s["h"], 0.0)),
     }
     return s, diag
+
+
+# ---------------------------------------------------------------------------
+# Collisionless (dark-matter) step
+# ---------------------------------------------------------------------------
+
+def _dm_kdk(cfg: EngineConfig, eps_soft: float, s: Dict, T: StepTables,
+            active, tb):
+    """kick2 -> timestep -> kick1 for collisionless particles (kick_gpart
+    kick.h:141, get_gpart_timestep timestep.h:95).  Returns (state,
+    too_small)."""
+    v_full = s["v_full"] + s["a_grav"] * T.dt_kick2[tb][..., None]
+    s = {**s, "v_full": _where_active(active, v_full, s["v_full"])}
+
+    # timestep: dt = sqrt(2 eta eps / |a|), the split-mesh part included
+    a = s["a_grav"] + s["a_grav_mesh"]
+    a_norm = torch.sqrt(a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1]
+                        + a[..., 2] * a[..., 2])
+    new_dt = torch.sqrt(_f32(2.0 * cfg.eta_grav * eps_soft)
+                        / torch.clamp_min(a_norm, 1e-30))
+    new_dt = torch.clamp_max(new_dt, _f32(cfg.dt_max))
+    too_small = active & (new_dt < cfg.dt_min)
+    want_bin = torch.clamp(bin_from_dt(new_dt, T.time_base_inv), 1, NBINS)
+    want_bin = torch.clamp_max(want_bin, T.max_bin)
+    cur = tb.to(I32)
+    up_ok = T.aligned_up[tb]
+    new_bin = torch.where(
+        (want_bin > cur) & (cur > 0),
+        torch.where(up_ok, torch.minimum(want_bin, cur + 1), cur), want_bin)
+    s["time_bin"] = torch.where(active, new_bin, s["time_bin"])
+
+    # kick1 (first half of the new step)
+    tb1 = _tb_index(s["time_bin"])
+    v_full = s["v_full"] + s["a_grav"] * T.dt_kick1[tb1][..., None]
+    s["v_full"] = _where_active(active, v_full, s["v_full"])
+    return s, too_small
+
+
+def dm_step(grid: CellGrid, cfg: EngineConfig, gravity_fn: Callable,
+            eps_soft: float, s: Dict, T: StepTables):
+    """Collisionless step: drift -> rebucket -> gravity -> KDK, SWIFT's
+    gravity-only pipeline (runner_doiact_grav + kick_gpart, kick.h:141).
+    Returns (new_state, diagnostics)."""
+    s = {**s, "off": s["off"] + s["v_full"] * T.dt_drift
+         * s["mask"][..., None]}
+    # trigger-based rebucket; the reach is the P2P r_cut
+    s, n_overflow = _rebucket_phase(grid, cfg, s, T, _f32(cfg.p2p_reach))
+    mask_b = s["mask"] > 0
+    tb = _tb_index(s["time_bin"])
+    active = mask_b & T.active[tb]
+
+    # gravity on every particle; inactive ones keep their old a_grav
+    acc, pot = gravity_fn(s)
+    s["a_grav"] = _where_active(active, acc, s["a_grav"])
+    s["pot"] = torch.where(active, pot, s["pot"])
+
+    s, too_small = _dm_kdk(cfg, eps_soft, s, T, active, tb)
+    diag = {
+        "bin_counts": _bin_counts(mask_b, s["time_bin"]),
+        "n_overflow": n_overflow,
+        "n_dt_too_small": torch.sum(too_small),
+        "n_ghost_iter": 0,
+        "n_active": torch.sum(active),
+        "h_max_active": torch.zeros((), device=mask_b.device),
+        "k_max_live": torch.amax(torch.sum(mask_b, dim=1)),
+    }
+    return s, diag
+
+
+def _dm_init(grid, cfg, gravity_fn, eps_soft, s, T):
+    """The collisionless engine_init_particles: gravity, first bins and
+    the first half-kick."""
+    acc, pot = gravity_fn(s)
+    s = {**s, "a_grav": acc, "pot": pot}
+    a_norm = torch.sqrt(acc[..., 0] * acc[..., 0] + acc[..., 1] * acc[..., 1]
+                        + acc[..., 2] * acc[..., 2])
+    new_dt = torch.sqrt(_f32(2.0 * cfg.eta_grav * eps_soft)
+                        / torch.clamp_min(a_norm, 1e-30))
+    new_dt = torch.clamp_max(new_dt, _f32(cfg.dt_max))
+    mask_b = s["mask"] > 0
+    new_bin = torch.clamp(bin_from_dt(new_dt, T.time_base_inv), 1, NBINS)
+    new_bin = torch.clamp_max(new_bin, T.max_bin)
+    s["time_bin"] = torch.where(mask_b, new_bin, 0)
+    dt_k1 = T.dt_kick1[_tb_index(s["time_bin"])]
+    s["v_full"] = s["v_full"] + acc * dt_k1[..., None] \
+        * s["mask"][..., None]
+    diag = {"bin_counts": _bin_counts(mask_b, s["time_bin"]),
+            "n_overflow": torch.zeros((), dtype=I32, device=mask_b.device),
+            "n_dt_too_small": torch.sum(mask_b & (new_dt < cfg.dt_min)),
+            "n_ghost_iter": 0, "n_active": torch.sum(mask_b),
+            "h_max_active": torch.zeros((), device=mask_b.device)}
+    return s, diag
+
+
+def _dm_tiles(grid: CellGrid, pos, m, v, pid, device, zsort: bool):
+    """Bucket collisionless particles into a tiled state (load_dm)."""
+    n = len(pos)
+    if pid is None:
+        pid = np.arange(n, dtype=np.int32)
+    fields = {"pid": np.asarray(pid, np.int32),
+              "m": np.asarray(m, np.float32),
+              "v_full": np.asarray(v, np.float32)}
+    out, mask, off, n_over = bucket_fields(grid, np.asarray(pos), fields,
+                                           device=device, zsort=zsort)
+    if int(n_over) != 0:
+        raise RuntimeError(f"{int(n_over)} DM particles overflow K")
+    C, K = grid.C, grid.K
+    return {"mask": mask, "off": off, **out,
+            "a_grav": torch.zeros((C, K, 3), dtype=F32, device=device),
+            "a_grav_mesh": torch.zeros((C, K, 3), dtype=F32, device=device),
+            "pot": torch.zeros((C, K), dtype=F32, device=device),
+            "pot_mesh": torch.zeros((C, K), dtype=F32, device=device),
+            "time_bin": torch.zeros((C, K), dtype=I32, device=device),
+            "drift_accum": torch.zeros((), dtype=F32, device=device)}
 
 
 def _mesh_update(mesh_fn, s, dt_close: float, dt_open: float):
@@ -524,7 +665,8 @@ class Engine:
                  cfg: EngineConfig, time_begin: float, time_end: float,
                  *, device="cuda", gravity_fn: Optional[Callable] = None,
                  mesh_fn: Optional[Callable] = None,
-                 mesh_dt_scale: float = 0.0):
+                 mesh_dt_scale: float = 0.0, cosmology=None,
+                 cooling_fn: Optional[Callable] = None):
         if cfg.backend not in BACKENDS:
             raise ValueError(f"backend {cfg.backend!r} is not ported "
                              f"(have {sorted(BACKENDS)})")
@@ -532,8 +674,16 @@ class Engine:
         self.grid = grid
         self.sph = sph
         self.cfg = cfg
-        self.timeline = tl.Timeline(time_begin, time_end)
-        self.cosmo = NO_COSMO
+        self.cooling_fn = cooling_fn
+        self.cosmology = cosmology  # models.cosmology.Cosmology or None
+        if cosmology is not None:
+            # cosmological runs: the integer timeline lives in log(a)
+            self.timeline = tl.Timeline(cosmology.log_a_begin,
+                                        cosmology.log_a_end)
+            self.cosmo = cosmology.factors_at(0)
+        else:
+            self.timeline = tl.Timeline(time_begin, time_end)
+            self.cosmo = NO_COSMO
         # split PM mesh: gravity_fn is the short-range part only; the mesh
         # field lives on its own longer timestep (engine.c:2406 ti_mesh)
         self.gravity_fn = gravity_fn
@@ -606,12 +756,17 @@ class Engine:
 
     # --- split PM-mesh timestep (kick.h:255, engine.c:2406) ----------------
     def _kick_fac(self, lo: int, hi: int) -> float:
-        return (hi - lo) * self.timeline.time_base
+        c = self.cosmology
+        if c is None:
+            return (hi - lo) * self.timeline.time_base
+        return float(c.grav_kick_factor(lo, hi))
 
     def _pick_mesh_dti(self, amax: float) -> int:
         """Largest aligned power-of-2 interval under the mesh timestep
-        dt = sqrt(2 eta r_s / |a_mesh|max) (get_mesh_timestep analog)."""
+        dt = sqrt(2 eta r_s / |a_mesh|max) (get_mesh_timestep analog); in
+        cosmological runs the interval's span is a physical time."""
         t = self.timeline
+        c = self.cosmology
         ti = t.ti_current
         L = self.mesh_dt_scale if self.mesh_dt_scale > 0 else 1e-3
         dt = float(np.sqrt(2.0 * self.cfg.eta_grav * L / max(amax, 1e-30)))
@@ -619,7 +774,13 @@ class Engine:
         b = 1
         while b < NBINS:
             dti_n = tl.get_integer_timestep(b + 1)
-            if ti % dti_n or dti_n * t.time_base > dt:
+            if ti % dti_n:
+                break
+            if c is None:
+                if dti_n * t.time_base > dt:
+                    break
+            elif c.delta_time(ti, min(ti + dti_n,
+                                      tl.MAX_NR_TIMESTEPS)) > dt:
                 break
             b += 1
         return tl.get_integer_timestep(b)
@@ -655,33 +816,75 @@ class Engine:
         return diag
 
     # --- stepping ---------------------------------------------------------
-    def _tables(self, dt_drift: float = 0.0) -> StepTables:
+    def _tables(self, dt_drift: float = 0.0,
+                ti_drift_start: Optional[int] = None) -> StepTables:
+        """The step's per-bin tables at ti_current.  In cosmological runs
+        kick2 closes [ti - dti/2, ti] and kick1 opens [ti, ti + dti/2]
+        with the cosmology's integrals of 1/a (velocity) and of the
+        thermal power of 1/a, the drift since ``ti_drift_start`` is the
+        integral of 1/a^2, and the step takes ``factors_at(ti)``."""
         t = self.timeline
+        c = self.cosmology
         ti = t.ti_current
-        dt_half = np.zeros(NBINS + 1, np.float32)
-        dt_full = np.zeros(NBINS + 1, np.float32)
+        tabs = {k: np.zeros(NBINS + 1, np.float32)
+                for k in ("k1", "k2", "t1", "t2", "full", "tf")}
         aligned_up = np.zeros(NBINS + 1, bool)
         for b in range(1, NBINS + 1):
             dti = tl.get_integer_timestep(b)
-            dt_half[b] = 0.5 * dti * t.time_base
-            dt_full[b] = dti * t.time_base
+            if c is None:
+                half = 0.5 * dti * t.time_base
+                for k in ("k1", "k2", "t1", "t2"):
+                    tabs[k][b] = half
+                tabs["full"][b] = tabs["tf"][b] = dti * t.time_base
+            else:
+                lo2 = max(ti - dti // 2, 0)
+                hi1 = min(ti + dti // 2, tl.MAX_NR_TIMESTEPS)
+                lo = max(ti - dti, 0)
+                tabs["k2"][b] = c.grav_kick_factor(lo2, ti)
+                tabs["k1"][b] = c.grav_kick_factor(ti, hi1)
+                tabs["t2"][b] = c.therm_kick_factor(lo2, ti)
+                tabs["t1"][b] = c.therm_kick_factor(ti, hi1)
+                tabs["full"][b] = c.delta_time(lo, ti)
+                tabs["tf"][b] = c.therm_kick_factor(lo, ti)
             up = tl.get_integer_timestep(min(b + 1, NBINS))
             aligned_up[b] = (ti % up) == 0
         max_bin = 1
-        while (max_bin < NBINS and tl.get_integer_timestep(max_bin + 1)
-               * t.time_base <= self.cfg.dt_max):
-            max_bin += 1
+        if c is None:
+            while (max_bin < NBINS and tl.get_integer_timestep(max_bin + 1)
+                   * t.time_base <= self.cfg.dt_max):
+                max_bin += 1
+            tb_inv = t.time_base_inv
+            dt_therm_drift = dt_drift
+        else:
+            # dt_max is a physical time: the largest bin whose span stays
+            # under it
+            while (max_bin < NBINS and c.delta_time(ti, min(
+                    ti + tl.get_integer_timestep(max_bin + 1),
+                    tl.MAX_NR_TIMESTEPS)) <= self.cfg.dt_max):
+                max_bin += 1
+            # physical dt -> Delta log(a): times H (timestep.h)
+            tb_inv = float(c.H(c.a_of_ti(ti))) * t.time_base_inv
+            self.cosmo = c.factors_at(ti)
+            if ti_drift_start is not None:
+                dt_drift = c.drift_factor(ti_drift_start, ti)
+                dt_therm_drift = c.therm_kick_factor(ti_drift_start, ti)
+            else:
+                dt_therm_drift = dt_drift
         dev = self.device
         wake_dv, wake_du = self._wake_tables(ti)
+
+        def on(a):
+            return torch.as_tensor(a, device=dev)
+
         return StepTables(
-            active=torch.as_tensor(t.active_bins_mask(), device=dev),
-            dt_half=torch.as_tensor(dt_half, device=dev),
-            dt_alpha=torch.as_tensor(dt_full, device=dev),
-            aligned_up=torch.as_tensor(aligned_up, device=dev),
-            dt_drift=_f32(dt_drift), max_bin=max_bin,
-            time_base_inv=_f32(t.time_base_inv),
-            wake_dv=torch.as_tensor(wake_dv, device=dev),
-            wake_du=torch.as_tensor(wake_du, device=dev))
+            active=on(t.active_bins_mask()),
+            dt_kick1=on(tabs["k1"]), dt_kick2=on(tabs["k2"]),
+            dt_therm1=on(tabs["t1"]), dt_therm2=on(tabs["t2"]),
+            dt_alpha=on(tabs["full"]), dt_therm_full=on(tabs["tf"]),
+            aligned_up=on(aligned_up),
+            dt_drift=_f32(dt_drift), dt_therm_drift=_f32(dt_therm_drift),
+            max_bin=max_bin, time_base_inv=_f32(tb_inv),
+            wake_dv=on(wake_dv), wake_du=on(wake_du))
 
     def _wake_tables(self, ti: int):
         """(old_bin, new_bin) -> net wake kick (timestep_limit_part,
@@ -692,11 +895,12 @@ class Engine:
         beg_new] (beg_new = last dti_n-aligned tick <= ti), (iii) applies
         the new step's kick1 [beg_new, beg_new + dti_n/2], merged into one
         net dt per (old, new) bin pair; without cosmology the velocity and
-        thermal kicks share it."""
+        thermal kicks share it, with it each takes its own integral."""
         wake_dv = np.zeros((NBINS + 1, NBINS + 1), np.float32)
         wake_du = np.zeros((NBINS + 1, NBINS + 1), np.float32)
         if not self.cfg.with_timestep_limiter or ti <= 0:
             return wake_dv, wake_du
+        c = self.cosmology
         tb = self.timeline.time_base
         for bo in range(2, NBINS + 1):
             dto = tl.get_integer_timestep(bo)
@@ -706,9 +910,17 @@ class Engine:
                 dtn = tl.get_integer_timestep(bn)
                 beg_n = dtn * (ti // dtn)
                 half_n = beg_n + dtn // 2
-                dv = ((beg_n - half_o) + (half_n - beg_n)) * tb
+                if c is None:
+                    dv = du = ((beg_n - half_o) + (half_n - beg_n)) * tb
+                else:
+                    dv = (-c.grav_kick_factor(beg_o, half_o)
+                          + c.grav_kick_factor(beg_o, beg_n)
+                          + c.grav_kick_factor(beg_n, half_n))
+                    du = (-c.therm_kick_factor(beg_o, half_o)
+                          + c.therm_kick_factor(beg_o, beg_n)
+                          + c.therm_kick_factor(beg_n, half_n))
                 wake_dv[bo, bn] = dv
-                wake_du[bo, bn] = dv
+                wake_du[bo, bn] = du
         return wake_dv, wake_du
 
     def step(self):
@@ -735,12 +947,13 @@ class Engine:
             if self.ti_mesh_end is None:
                 self._mesh_boundary()
             ti_next = min(ti_next, self.ti_mesh_end)
-        dt_drift = (ti_next - t.ti_current) * t.time_base
+        ti_old = t.ti_current
+        dt_drift = (ti_next - ti_old) * t.time_base
         t.ti_current = ti_next
-        T = self._tables(dt_drift=dt_drift)
+        T = self._tables(dt_drift=dt_drift, ti_drift_start=ti_old)
         self.state, diag = hydro_step(self.grid, self.sph, self.cfg,
                                       self.gravity_fn, self.cosmo,
-                                      self.state, T)
+                                      self.state, T, self.cooling_fn)
         self._post_step(diag)
         self.step_count += 1
         if self.mesh_fn is not None and t.ti_current >= self.ti_mesh_end:
@@ -875,7 +1088,7 @@ class Engine:
                 k = min(k, max(1, (self.ti_mesh_end - t.ti_current) // dti))
             self.state, diag = multi_step(self.grid, self.sph, self.cfg,
                                           self.gravity_fn, k, self.cosmo,
-                                          self.state, T)
+                                          self.state, T, self.cooling_fn)
             deviations.append(diag["bin_deviation"])
             t.ti_current += k * dti
             self.step_count += k
@@ -911,3 +1124,59 @@ class Engine:
                 on_step(diag)
             steps += 1
         return steps
+
+
+class DMEngine(Engine):
+    """Gravity-only engine (EAGLE_DMO-style runs, bench.py's dmo mode):
+    the same timeline and tables, collisionless KDK stepping
+    (``dm_step``).  ``gravity_fn`` and ``mesh_fn`` take one species'
+    state (``GravitySolver.gas_short_range_fn`` / ``gas_mesh_fn``)."""
+
+    def __init__(self, grid: CellGrid, cfg: EngineConfig, time_begin: float,
+                 time_end: float, gravity_fn: Callable, eps_soft: float, *,
+                 device="cuda", cosmology=None,
+                 mesh_fn: Optional[Callable] = None,
+                 mesh_dt_scale: float = 0.0):
+        if cfg.backend != "flat":
+            raise ValueError(f"the port's DMEngine runs on the flat column "
+                             f"grid only (backend {cfg.backend!r})")
+        super().__init__(grid, SPHENIXParams(), cfg, time_begin, time_end,
+                         device=device, gravity_fn=gravity_fn,
+                         mesh_fn=mesh_fn, mesh_dt_scale=mesh_dt_scale,
+                         cosmology=cosmology)
+        self.eps_soft = float(eps_soft)
+
+    def load_dm(self, pos, m, v, pid=None):
+        """Bucket the particles (z-sorted columns)."""
+        self.state = _dm_tiles(self.grid, pos, m, v, pid, self.device,
+                               zsort=True)
+        self.n_particles = len(pos)
+
+    def _init_particles_once(self):
+        if self.mesh_fn is not None:
+            self._mesh_boundary()
+        T = self._tables()
+        self.state, diag = _dm_init(self.grid, self.cfg, self.gravity_fn,
+                                    self.eps_soft, self.state, T)
+        self._post_step(diag)
+        return diag
+
+    def _step_once(self):
+        t = self.timeline
+        ti_next = self._ti_end_min
+        if self.mesh_fn is not None:
+            if self.ti_mesh_end is None:
+                self._mesh_boundary()
+            ti_next = min(ti_next, self.ti_mesh_end)
+        ti_old = t.ti_current
+        dt_drift = (ti_next - ti_old) * t.time_base
+        t.ti_current = ti_next
+        # ti_drift_start: cosmological runs drift by the integral of 1/a^2
+        T = self._tables(dt_drift=dt_drift, ti_drift_start=ti_old)
+        self.state, diag = dm_step(self.grid, self.cfg, self.gravity_fn,
+                                   self.eps_soft, self.state, T)
+        self._post_step(diag)
+        self.step_count += 1
+        if self.mesh_fn is not None and t.ti_current >= self.ti_mesh_end:
+            self._mesh_boundary()
+        return diag

@@ -3,7 +3,8 @@
 Copies of ``bcc_lattice``, ``uniform_box_ic`` and ``sedov_ic`` from the
 reference's ``ics.py``: the same lattice, the same ``default_rng(seed)``
 jitter and the same blast injection, so both packages start from
-identical particles.
+identical particles; and ``zeldovich`` with the gas and DM lattices of
+``examples/small_cosmo_volume/make_ics.py``, returned as arrays.
 """
 
 from __future__ import annotations
@@ -60,3 +61,73 @@ def sedov_ic(n: int = 32, E0: float = 1.0, n_inject: int = 15,
     v = np.zeros((N, 3), np.float32)
     return {"pos": pos, "m": m, "u": u.astype(np.float32), "h": h,
             "v": v, "box": box, "gamma": gamma}
+
+
+# ---------------------------------------------------------------------------
+# SmallCosmoVolume (examples/small_cosmo_volume/make_ics.py, as arrays)
+# ---------------------------------------------------------------------------
+
+def zeldovich(n, L, amp, slope, seed, a_start, Omega_m, H0):
+    """Displacement + velocity fields on an n^3 lattice: a Gaussian
+    random field with a power-law spectrum P(k) ~ amp k^slope (cut off
+    near the Nyquist wavenumber), Zel'dovich displacements psi = i k/k^2
+    delta_k, and growing-mode velocities v = a H(a) f psi with f ~
+    Omega_m(a)^0.55.  Returns (psi (n^3, 3), vel (n^3, 3)), float64."""
+    rng = np.random.default_rng(seed)
+    k1 = np.fft.fftfreq(n, d=L / n) * 2 * np.pi
+    kx, ky, kz = np.meshgrid(k1, k1, k1, indexing="ij")
+    k2 = kx ** 2 + ky ** 2 + kz ** 2
+    k2[0, 0, 0] = 1.0
+    phase = rng.standard_normal((n, n, n)) + 1j * rng.standard_normal(
+        (n, n, n))
+    k_ny = np.pi * n / L
+    pk = amp * np.maximum(k2, 1e-30) ** (slope / 2.0) \
+        * np.exp(-k2 / (0.5 * k_ny) ** 2)
+    pk[0, 0, 0] = 0.0
+    delta_k = phase * np.sqrt(pk)
+    psi = []
+    for kk in (kx, ky, kz):
+        f = 1j * kk / k2 * delta_k
+        psi.append(np.real(np.fft.ifftn(f)))
+    psi = np.stack(psi, axis=-1).reshape(-1, 3)
+    Ha = H0 * np.sqrt(Omega_m / a_start ** 3 + (1.0 - Omega_m))
+    f_growth = (Omega_m / a_start ** 3
+                / (Omega_m / a_start ** 3 + 1.0 - Omega_m)) ** 0.55
+    vel = a_start * Ha * f_growth * psi
+    return psi, vel
+
+
+def small_cosmo_volume_ic(n: int = 16, L: float = 25.0, z: float = 9.0,
+                          amp: float = 40.0, seed: int = 1,
+                          h: float = 0.67, Omega_m: float = 0.309,
+                          Omega_b: float = 0.049):
+    """SmallCosmoVolume-style gas + DM initial conditions (make_ics.py's
+    arrays, without its HDF5 writer): n^3 DM on a cell-centred lattice
+    and n^3 gas offset by half a spacing, both displaced by one
+    Zel'dovich field (slope -1), growing-mode velocities, u = 150 and
+    h = 1.3 spacings for the gas; units Mpc, km/s, 1e10 Msun.  Returns a
+    dict of per-species arrays and the box, a_start and rms |psi|."""
+    a0 = 1.0 / (1.0 + z)
+    H0 = 100.0 * h              # km/s/Mpc = internal velocity/length
+    G = 43.022                  # Mpc (km/s)^2 / 1e10 Msun
+    rho_crit0 = 3.0 * H0 ** 2 / (8.0 * np.pi * G)
+    m_tot = Omega_m * rho_crit0 * L ** 3
+    lat = (np.indices((n, n, n)).reshape(3, -1).T + 0.5) / n * L
+    psi, vel = zeldovich(n, L, amp, -1.0, seed, a0, Omega_m, H0)
+    N = n ** 3
+    d_mean = L / n
+    return {
+        "box": (L, L, L), "a_start": a0,
+        "psi_rms": float(np.sqrt(np.mean(np.sum(psi * psi, axis=1)))),
+        "gas": {"pos": np.mod(lat + 0.5 * L / n + psi, L),
+                "v": vel.astype(np.float32),
+                "m": np.full(N, Omega_b / Omega_m * m_tot / N, np.float32),
+                "u": np.full(N, 150.0, np.float32),
+                "h": np.full(N, 1.3 * d_mean, np.float32),
+                "pid": np.arange(N, dtype=np.int64)},
+        "dm": {"pos": np.mod(lat + psi, L),
+               "v": vel.astype(np.float32),
+               "m": np.full(N, (1 - Omega_b / Omega_m) * m_tot / N,
+                            np.float32),
+               "pid": np.arange(N, 2 * N, dtype=np.int64)},
+    }

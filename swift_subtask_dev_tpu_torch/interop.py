@@ -3,7 +3,9 @@
 The system has no weights; what crosses between the two packages is the
 tiled particle state.  ``state_from_reference`` takes a reference
 ``Engine.state`` converted with ``np.asarray`` and returns the port's state
-with the same keys, shapes and dtypes (``drift_accum`` as a 0-dim tensor).
+with the same keys, shapes and dtypes (``drift_accum`` as a 0-dim tensor);
+``multi_state_from_reference`` does so for each species of a reference
+``MultiEngine.state``.
 """
 
 from __future__ import annotations
@@ -21,3 +23,11 @@ def state_from_reference(state: Dict[str, np.ndarray],
     if "drift_accum" in out:
         out["drift_accum"] = out["drift_accum"].reshape(()).to(torch.float32)
     return out
+
+
+def multi_state_from_reference(state: Dict[str, Dict[str, np.ndarray]],
+                               device) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A reference ``MultiEngine.state`` ({species: state}) carried across
+    species by species, as ``state_from_reference``."""
+    return {name: state_from_reference(sp, device)
+            for name, sp in state.items()}

@@ -75,9 +75,11 @@ class SPHENIXParams:
 class CosmoFactors(NamedTuple):
     """Scale-factor-dependent factors entering the SPH equations.
 
-    The port runs non-cosmological only: the factors are python floats
-    (the identity a=1, H=0 of ``no_cosmo``), which the pair bodies and the
-    CUDA kernel take as plain constants.
+    Python floats, each rounded to f32: the identity a=1, H=0 of
+    ``no_cosmo``, or ``models.cosmology.Cosmology.factors_at(ti)``, which
+    the engine takes anew every step.  The torch code multiplies them in;
+    the CUDA pair bodies take theirs (``hydro_flat._cosmo_params``) as
+    launch arguments, so a new step's factors need no rebuild.
     """
 
     a: float

@@ -7,7 +7,8 @@ column/z-sorted ``pair_flat``; ``engine="packed"``: the 27-cell
 reference's ``ENGINES`` table), and fused force + short-range gravity, P2P
 gravity and the limiter's timebin scan on the flat engine.  Each loop
 builds a :class:`~.pair_flat.PairPass` — the (C, K) field tiles in the
-body's field order, the body's constants and its plain torch callback —
+body's field order, the body's constants and its plain torch callback
+(and, for P2P gravity between two species, the j species' tiles) —
 and runs it through the engine's ``pair_apply`` (the CUDA kernel on the
 card, the plain version on the CPU).  ``active_i`` evaluates only the
 active particles: the flat engine skips i-tiles with no active particle,
@@ -24,7 +25,7 @@ accepted no pair.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -252,11 +253,19 @@ def force_gravity_pass(s: Dict, p: SPHENIXParams, cosmo: CosmoFactors,
                     sym_range=True, reach_floor=float(r_cut))
 
 
-def p2p_gravity_pass(s: Dict, G: float, H_soft: float, r_s: float,
-                     r_cut: float) -> PairPass:
+def _grav_fields(s: Dict, r_cut: float) -> Dict[str, torch.Tensor]:
     fields = _common_fields(s)
     fields["h"] = torch.full_like(s["mask"], float(r_cut))
     fields["m"] = s["m"]
+    return fields
+
+
+def p2p_gravity_pass(s: Dict, G: float, H_soft: float, r_s: float,
+                     r_cut: float, s_j: Optional[Dict] = None) -> PairPass:
+    """P2P gravity on the species ``s`` from itself, or, with ``s_j``,
+    from another species on the same column grid (a cross-species pass;
+    ``H_soft`` is then the pair's softening, max(H_i, H_j))."""
+    fields = _grav_fields(s, r_cut)
     gparams = _grav_params(G, H_soft, r_s, r_cut)
     r_cut2, H_inv, _, r_s_inv, Gf = gparams
 
@@ -268,7 +277,9 @@ def p2p_gravity_pass(s: Dict, G: float, H_soft: float, r_s: float,
         return ok, [-gmF * dx[0], -gmF * dx[1], -gmF * dx[2], -gm * P], []
 
     body = PairBody("p2p_gravity", P2P_FIELDS, 4, 0, gparams, fn)
-    return PairPass(body, fields, range_scale=1.0)
+    return PairPass(body, fields, range_scale=1.0,
+                    fields_j=None if s_j is None
+                    else _grav_fields(s_j, r_cut))
 
 
 def timebin_pass(s: Dict, p: SPHENIXParams) -> PairPass:
@@ -354,16 +365,47 @@ def force_gravity_loop(grid: CellGrid, s: Dict, p: SPHENIXParams,
     return out
 
 
-def p2p_gravity_loop(grid: CellGrid, s: Dict, G: float, H_soft: float,
-                     r_s: float, r_cut: float):
-    """Short-range P2P self-gravity of one species on the flat layout:
-    pairs beyond r_cut are left to the PM mesh.  Returns (acc (C,W,3),
-    pot (C,W))."""
-    pp = p2p_gravity_pass(s, G, H_soft, r_s, r_cut)
-    sums, _ = pair_flat.pair_apply(grid, pp)
-    m = s["mask"]
-    return (torch.stack([sums[0] * m, sums[1] * m, sums[2] * m], -1),
-            sums[3] * m)
+def _pad_lanes(s: Dict) -> Dict:
+    """Pad a species' tiles to the kernel's 128-lane i-tiles with empty
+    slots (mask 0), as the reference's ``pad_lanes``; only the fields a
+    P2P pass reads."""
+    sub = {k: s[k] for k in ("mask", "off", "m")}
+    W = sub["mask"].shape[1]
+    pad = (-W) % pair_flat.LANES
+    if pad == 0:
+        return sub
+    return {k: torch.cat([v, torch.zeros((v.shape[0], pad) + v.shape[2:],
+                                         dtype=v.dtype, device=v.device)],
+                         dim=1) for k, v in sub.items()}
+
+
+def p2p_gravity_loop(grid: CellGrid, s_i: Dict, species_j: Sequence[Dict],
+                     G: float, H_soft: float, r_s: float, r_cut: float,
+                     H_soft_j: Optional[Sequence[float]] = None):
+    """Short-range P2P gravity on the species ``s_i`` from every species
+    of ``species_j`` (each with its own column capacity, on the same
+    column grid): pairs beyond r_cut are left to the PM mesh.  A source
+    that is ``s_i`` itself (``is``) runs K1's one-species launch, any
+    other its cross-species launch; a pair softens with max(H_i, H_j)
+    (``H_soft_j``: one softening per source, default ``H_soft``).  The
+    reference's ``hydro_pallas.p2p_gravity_loop`` (periodic truncation,
+    the port's only mode).  Returns (acc (C,W,3), pot (C,W))."""
+    W_i = s_i["mask"].shape[1]
+    fi = _pad_lanes(s_i)
+    H_js = ([float(h) for h in H_soft_j] if H_soft_j is not None
+            else [float(H_soft)] * len(species_j))
+    acc0 = acc1 = acc2 = pot = 0.0
+    for s_j, H_j in zip(species_j, H_js):
+        same = s_j is s_i
+        pp = p2p_gravity_pass(fi, G, max(float(H_soft), H_j), r_s, r_cut,
+                              s_j=None if same else _pad_lanes(s_j))
+        sums, _ = pair_flat.pair_apply(grid, pp)
+        acc0 = acc0 + sums[0][:, :W_i]
+        acc1 = acc1 + sums[1][:, :W_i]
+        acc2 = acc2 + sums[2][:, :W_i]
+        pot = pot + sums[3][:, :W_i]
+    m = s_i["mask"]
+    return (torch.stack([acc0 * m, acc1 * m, acc2 * m], -1), pot * m)
 
 
 def timebin_loop(grid: CellGrid, s: Dict, p: SPHENIXParams) -> torch.Tensor:

@@ -10,6 +10,13 @@ A pair body is evaluated on exactly those rows, and ``n_sum`` masked sums
 and ``n_max`` masked maxes are reduced per i slot.  The pair mask is
 ``mask_j > 0 & r2 > 0 & ok_extra``.
 
+Cross-species passes (``PairPass.fields_j``; the reference's ``fields_j``
+/ ``field_order_j``) take the i slots from one species' tiles and the j
+rows from another's, on the same column grid, in the same field order;
+each species has its own per-column capacity (``W`` for the i side,
+``Wj`` for the j side), and the range words are built over the j
+species' blocks.
+
 ``_block_ranges`` (the range words) is plain torch and bit-identical to
 the reference.  ``pair_apply`` runs the hand-written CUDA kernel
 (``csrc/pair_flat.cu``) on CUDA tensors and ``pair_apply_plain`` on CPU
@@ -71,6 +78,12 @@ def reset_launches() -> None:
     LAUNCHES.clear()
 
 
+def launch_name(body: "PairBody", launch: "PairLaunch") -> str:
+    """The ``LAUNCHES`` key of a launch: the body's name, with
+    ``_cross`` for a cross-species launch."""
+    return body.name + ("_cross" if launch.cross else "")
+
+
 @dataclass(frozen=True)
 class PairBody:
     """One pair body: its CUDA entry, field order and plain callback.
@@ -100,6 +113,8 @@ class PairPass:
     range_scale: float
     sym_range: bool = False
     reach_floor: float = 0.0
+    # cross-species pass: the j side's (Ncol, Wj) tiles, same field names
+    fields_j: Optional[Dict[str, torch.Tensor]] = None
 
 
 @dataclass
@@ -109,13 +124,15 @@ class PairLaunch:
     tcounts: torch.Tensor      # (Ncol,) i32 live i-tiles per column
     ranges: torch.Tensor       # (Ncol, TPC, 9, 2) i32 range words
     Xi: torch.Tensor           # (F, Ncol*W) f32, i-side SoA
-    Xa: torch.Tensor           # (Ncol*W, F) f32, j-side AoS
+    Xa: torch.Tensor           # (Ncol*Wj, F) f32, j-side AoS
     ncx: int
     ncy: int
-    W: int
+    W: int                     # i-side column capacity
     ex: float
     ey: float
     boxz: float
+    Wj: int                    # j-side column capacity (W for one species)
+    cross: bool                # the j side is another species
 
 
 def _column_geometry(grid: CellGrid):
@@ -142,13 +159,17 @@ def nbr_col_table(grid: CellGrid) -> np.ndarray:
 
 def _block_ranges(grid: CellGrid, maskf, zf, hf, gamma: float,
                   sym_range: bool, jb: int = GRAN,
-                  reach_floor: float = 0.0) -> torch.Tensor:
+                  reach_floor: float = 0.0, maskf_j=None, zf_j=None,
+                  hf_j=None) -> torch.Tensor:
     """(Ncol, TPC, 9, 2) i32 packed j-row ranges: word 0 = s1|c1<<16,
     word 1 = s2|c2<<16, in units of ``jb`` rows.
 
     Columns are z-sorted, so the j-blocks whose z-interval overlaps an
     i-tile's reach-inflated z-range form a contiguous run of block ids, or
-    two runs when the range wraps the periodic box.
+    two runs when the range wraps the periodic box.  With the j side's
+    ``maskf_j``, ``zf_j`` and ``hf_j`` (a cross-species pass) the blocks
+    are the j species' own (its capacity Wj, Wj / jb blocks); the i-tile
+    extents stay the i side's.
     """
     dev = maskf.device
     ncx, ncy, Ncol = _column_geometry(grid)
@@ -157,16 +178,19 @@ def _block_ranges(grid: CellGrid, maskf, zf, hf, gamma: float,
     boxz = float(np.float32(grid.box[2]))
     inf = float("inf")
     live = maskf > 0
-    NBLK = W // jb
+    if maskf_j is None:
+        maskf_j, zf_j, hf_j = maskf, zf, hf
+    live_j = maskf_j > 0
+    NBLK = maskf_j.shape[1] // jb
 
     zi = torch.where(live, zf, inf).reshape(NI, TPC, LANES)
     iz_lo = torch.amin(zi, dim=2)                               # (NI,TPC)
     iz_hi = torch.amax(torch.where(torch.isfinite(zi), zi, -inf), dim=2)
     hmax_tile = torch.amax(
         torch.where(live, hf, 0.0).reshape(NI, TPC, LANES), dim=2)
-    hmax_col = torch.amax(torch.where(live, hf, 0.0), dim=1)   # (Ncol,)
+    hmax_col = torch.amax(torch.where(live_j, hf_j, 0.0), dim=1)  # (Ncol,)
 
-    zb = torch.where(live, zf, inf).reshape(Ncol, NBLK, jb)
+    zb = torch.where(live_j, zf_j, inf).reshape(Ncol, NBLK, jb)
     jb_lo = torch.amin(zb, dim=2)                              # (Ncol,NBLK)
     jb_hi = torch.amax(torch.where(torch.isfinite(zb), zb, -inf), dim=2)
     # empty blocks (trailing, z-sorted): never "below" an interval, and
@@ -198,16 +222,28 @@ def _block_ranges(grid: CellGrid, maskf, zf, hf, gamma: float,
         end = NBLK - torch.sum(jlo[:, None] > b[..., None], dim=-1)
         return start.to(I32), torch.clamp_min(end - start, 0).to(I32)
 
-    wrap_lo = lo < 0.0
-    wrap_hi = hi > boxz
-    full = (hi - lo) >= boxz                    # range covers the box
-    a1 = torch.where(wrap_lo, 0.0, lo)
-    b1 = torch.where(wrap_hi, boxz, hi)
+    # Drifted particles may sit outside [0, boxz) until their next
+    # rebucket (the drift does not wrap z), so the windows are not clamped
+    # to the box: the first image is [lo, hi] and the second [lo, hi]
+    # shifted by one box height wherever that can reach a j particle
+    # (top / bot: the j side's z extremes, at least the box's).  For j
+    # z in [0, boxz) the words are the reference's, bit for bit; the
+    # reference clamps to the box and so misses the pairs of a particle
+    # drifted across z = 0 or z = boxz.
+    zj = torch.where(live_j, zf_j, inf)
+    top = torch.clamp_min(torch.amax(torch.where(live_j, zf_j, -inf)),
+                          boxz)
+    bot = torch.clamp_max(torch.amin(zj), 0.0)
+    wrap_lo = lo < top - boxz
+    wrap_hi = hi > bot + boxz
+    # range covers the box (or needs both shifted images)
+    full = ((hi - lo) >= boxz) | (wrap_lo & wrap_hi)
+    a1, b1 = lo, hi
     # second image (empty sentinel a2 > b2 yields count 0)
     a2 = torch.where(wrap_lo, lo + boxz,
-                     torch.where(wrap_hi, 0.0, boxz + 1.0))
-    b2 = torch.where(wrap_lo, boxz,
-                     torch.where(wrap_hi, hi - boxz, -1.0))
+                     torch.where(wrap_hi, lo - boxz, inf))
+    b2 = torch.where(wrap_lo, hi + boxz,
+                     torch.where(wrap_hi, hi - boxz, -inf))
     s1, c1 = range_of(a1, b1)
     s2, c2 = range_of(a2, b2)
     # a wide block can intersect both images: visit it once by clipping
@@ -229,30 +265,46 @@ def prepare(grid: CellGrid, pp: PairPass,
             active_i: Optional[torch.Tensor] = None) -> PairLaunch:
     """Build the kernel's inputs for one pass: live-tile counts, range
     words (zeroed for i-tiles without an active particle), SoA/AoS fields.
+    A cross-species pass (``pp.fields_j``) takes its AoS and its range
+    words' blocks from the j species.
     """
     ncx, ncy, Ncol = _column_geometry(grid)
     f = pp.fields
+    cross = pp.fields_j is not None
+    fj = pp.fields_j if cross else f
     W = f["mask"].shape[1]
-    if W % LANES or W % GRAN or W // GRAN > 65535:
-        raise ValueError(f"column capacity W={W} must be a multiple of "
-                         f"{LANES} with at most 65535 granules")
+    Wj = fj["mask"].shape[1]
+    if W % LANES:
+        raise ValueError(f"i-side column capacity W={W} must be a "
+                         f"multiple of {LANES}")
+    if Wj % GRAN or Wj // GRAN > 65535:
+        raise ValueError(f"j-side column capacity Wj={Wj} must be a "
+                         f"multiple of {GRAN} with at most 65535 granules")
     TPC = W // LANES
     col_counts = torch.sum(f["mask"] > 0, dim=1).to(I32)
     tcounts = ((col_counts + (LANES - 1)) // LANES).to(I32)
+    jside = ((fj["mask"], fj["off2"], fj["h"]) if cross
+             else (None, None, None))
     ranges = _block_ranges(grid, f["mask"], f["off2"], f["h"],
                            pp.range_scale, pp.sym_range, jb=GRAN,
-                           reach_floor=pp.reach_floor)
+                           reach_floor=pp.reach_floor, maskf_j=jside[0],
+                           zf_j=jside[1], hf_j=jside[2])
     if active_i is not None:
         tile_act = torch.any((active_i > 0).reshape(Ncol, TPC, LANES),
                              dim=2)
         ranges = torch.where(tile_act[:, :, None, None], ranges, 0)
     Xi = torch.stack([f[n].reshape(-1).to(F32) for n in pp.body.fields],
                      dim=0).contiguous()
-    Xa = Xi.t().contiguous()
+    if cross:
+        Xa = torch.stack([fj[n].reshape(-1).to(F32)
+                          for n in pp.body.fields], dim=1).contiguous()
+    else:
+        Xa = Xi.t().contiguous()
     return PairLaunch(tcounts=tcounts.contiguous(),
                       ranges=ranges.to(I32).contiguous(), Xi=Xi, Xa=Xa,
                       ncx=ncx, ncy=ncy, W=W, ex=float(grid.edge[0]),
-                      ey=float(grid.edge[1]), boxz=float(grid.box[2]))
+                      ey=float(grid.edge[1]), boxz=float(grid.box[2]),
+                      Wj=Wj, cross=cross)
 
 
 def _split(out: torch.Tensor, body: PairBody, Ncol: int, W: int):
@@ -292,10 +344,11 @@ def pair_apply_plain(launch: PairLaunch, body: PairBody,
                      stats: Optional[Dict] = None) -> torch.Tensor:
     """(n_sum + n_max, Ncol*W) outputs of ``body`` evaluated densely over
     every (i slot, j row) of each live tile's 9 neighbour columns, masked
-    to the rows the range words name.  Rows at or past the fullest
+    to the rows the range words name.  Rows at or past the fullest j
     column's live count are left out: every column's live particles fill
-    a prefix of its slots (checked here; a violation raises), so those
-    rows are empty.  Chunked over columns to bound memory.
+    a prefix of its slots (checked here on the j side, the i species' or
+    another's; a violation raises), so those rows are empty.  Chunked
+    over columns to bound memory.
 
     ``stats``, when given, receives ``"pairs"``: the accepted pairs whose i
     slot is live (the work the pass needs, for a roofline bound), and
@@ -309,9 +362,9 @@ def pair_apply_plain(launch: PairLaunch, body: PairBody,
     n_out = body.n_sum + body.n_max
     nbr = torch.as_tensor(_nbr_table(L.ncx, L.ncy), dtype=torch.int64,
                           device=dev)
-    live_j = L.Xa.reshape(Ncol, W, F)[..., fidx["mask"]] > 0
+    live_j = L.Xa.reshape(Ncol, L.Wj, F)[..., fidx["mask"]] > 0
     counts = torch.sum(live_j, dim=1)
-    rows = torch.arange(W, device=dev, dtype=I32)
+    rows = torch.arange(L.Wj, device=dev, dtype=I32)
     if bool(torch.any(live_j & (rows[None, :] >= counts[:, None]))):
         raise ValueError("pair_apply_plain: a live slot lies past its "
                          "column's count (columns must be front-packed)")
@@ -327,7 +380,7 @@ def pair_apply_plain(launch: PairLaunch, body: PairBody,
             stats["slot_pairs"] = slot_pairs.reshape(Ncol * W)
         return out.reshape(n_out, Ncol * W)
     xi_all = L.Xi.reshape(F, Ncol, W // LANES, LANES, 1)[:, :, :TPC]
-    xa_all = L.Xa.reshape(Ncol, W, F)[:, :Wj]
+    xa_all = L.Xa.reshape(Ncol, L.Wj, F)[:, :Wj]
     rows = rows[:Wj]
     inv_boxz = 1.0 / L.boxz
     nc = max(1, _PLAIN_PAIRS.get(dev.type, 1 << 20) // (TPC * LANES * Wj))
@@ -476,9 +529,9 @@ def walk_filter(launch: PairLaunch, body: PairBody) -> Dict:
     f32 = np.float32
     slack = float(f32(BOX_SLACK) * (f32(L.boxz) + f32(L.ex) + f32(L.ey)))
     inv_boxz = 1.0 / L.boxz
-    rows = torch.arange(W, device=dev)
+    rows = torch.arange(L.Wj, device=dev)
     xi_all = L.Xi.reshape(F, Ncol, TPC, WARPS, 32)
-    xa_all = L.Xa.reshape(Ncol, W, F)
+    xa_all = L.Xa.reshape(Ncol, L.Wj, F)
     w = L.ranges.to(torch.int64)                   # (Ncol, TPC, 9, 2)
     start = (w & 0xFFFF) * GRAN
     end = start + ((w >> 16) & 0xFFFF) * GRAN
@@ -486,7 +539,7 @@ def walk_filter(launch: PairLaunch, body: PairBody) -> Dict:
     passed = torch.zeros((Ncol, TPC, WARPS), dtype=torch.int64, device=dev)
     dropped = 0
     nc = max(1, _PLAIN_PAIRS.get(dev.type, 1 << 20) // 4
-             // (LANES * TPC * W))
+             // (LANES * TPC * L.Wj))
     for c0 in range(0, Ncol, nc):
         cols = slice(c0, min(c0 + nc, Ncol))
         xi = xi_all[:, cols, :, :, :, None]        # (F, n, TPC, WARPS, 32, 1)
@@ -512,13 +565,13 @@ def walk_filter(launch: PairLaunch, body: PairBody) -> Dict:
                                      float("-inf")), dim=-1)[..., None]
         any_own = torch.any(own, dim=-1)[..., None]  # (n, TPC, WARPS, 1)
         for o, (dx, dy) in enumerate(OFFSETS_9):
-            xj = xa_all[nbr[cols, o]]              # (n, W, F)
+            xj = xa_all[nbr[cols, o]]              # (n, Wj, F)
 
             def nf(name):
                 return xj[:, None, None, None, :, fidx[name]]
 
             def nb(name):
-                return nf(name)[..., 0, :]         # (n, 1, 1, W)
+                return nf(name)[..., 0, :]         # (n, 1, 1, Wj)
 
             sx = float(np.float32(dx * L.ex))
             sy = float(np.float32(dy * L.ey))
@@ -577,7 +630,7 @@ PROBE_BODY_NAMES = ("probe_a00", "probe_a", "probe_b", "probe_c", "probe_d",
 def _bind(lib: ctypes.CDLL) -> None:
     for name in BODY_NAMES + PROBE_BODY_NAMES:
         fn = getattr(lib, f"pair_flat_{name}")
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                        + [ctypes.c_float] * 4
                        + [ctypes.POINTER(ctypes.c_float), ctypes.c_int,
                           ctypes.c_void_p])
@@ -614,7 +667,9 @@ def kernel_attributes(name: str) -> Dict[str, int]:
 
 def pair_apply_kernel(launch: PairLaunch, body: PairBody,
                       stats: Optional[Dict] = None) -> torch.Tensor:
-    """Launch the CUDA kernel of ``body`` on PyTorch's current stream.
+    """Launch the CUDA kernel of ``body`` on PyTorch's current stream
+    (a cross-species launch reads its j rows from the j species' AoS,
+    ``Wj`` rows a column).
 
     Returns (n_sum + n_max, Ncol*W).  ``stats``, when given, receives
     ``"walk"``: the (Ncol, TPC, WARPS, 8) i32 per-warp statistics of
@@ -632,9 +687,12 @@ def pair_apply_kernel(launch: PairLaunch, body: PairBody,
             raise ValueError(f"pair_apply_kernel: {name} must be a "
                              f"contiguous {dt} tensor on {dev}")
     if tuple(L.Xi.shape) != (F, Ncol * W) or tuple(L.Xa.shape) != (
-            Ncol * W, F) or tuple(L.ranges.shape) != (Ncol, W // LANES,
-                                                      9, 2):
+            Ncol * L.Wj, F) or tuple(L.ranges.shape) != (Ncol, W // LANES,
+                                                         9, 2):
         raise ValueError("pair_apply_kernel: inconsistent shapes")
+    if W % LANES or L.Wj % GRAN or L.Wj // GRAN > 65535:
+        raise ValueError(f"pair_apply_kernel: capacities W={W}, "
+                         f"Wj={L.Wj} out of the kernel's range")
     if Ncol > 65535:
         raise ValueError(f"pair_apply_kernel: {Ncol} columns > 65535")
     if L.Xa.data_ptr() % 16:
@@ -652,11 +710,12 @@ def pair_apply_kernel(launch: PairLaunch, body: PairBody,
     err = fn(L.tcounts.data_ptr(), L.ranges.data_ptr(), L.Xi.data_ptr(),
              L.Xa.data_ptr(), out.data_ptr(),
              None if walk is None else walk.data_ptr(), L.ncx, L.ncy, W,
-             GRAN, F, L.ex, L.ey, L.boxz, 1.0 / L.boxz, prm,
+             L.Wj, GRAN, F, L.ex, L.ey, L.boxz, 1.0 / L.boxz, prm,
              len(body.params), stream)
     if err != 0:
         raise RuntimeError(f"pair_flat_{body.name}: CUDA error {err}")
-    LAUNCHES[body.name] = LAUNCHES.get(body.name, 0) + 1
+    key = launch_name(body, L)
+    LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
     if walk is not None:
         stats["walk"] = walk
     return out

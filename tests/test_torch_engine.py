@@ -167,7 +167,8 @@ def test_flat_loop_matches_reference(ref_run, port_run, loop):
                                              **kw)
     else:
         port = hydro_flat.p2p_gravity_loop(
-            grid_p, st, fs["G"], fs["H_soft"], fs["r_s"], fs["r_cut"])
+            grid_p, st, [st], fs["G"], fs["H_soft"], fs["r_s"],
+            fs["r_cut"])
         ref = dict(zip(("acc", "pot"), ref))
         port = dict(zip(("acc", "pot"), port))
     assert ref.keys() == port.keys()

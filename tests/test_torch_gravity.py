@@ -142,8 +142,8 @@ def test_solver_mesh_accelerations_match(mesh_inputs):
          "m": rng.uniform(0.5, 1.5, (9, 128)).astype(np.float32) * 1e-3}
     [(ar, pr)] = sol_r.mesh_accelerations([{k: jnp.asarray(v)
                                             for k, v in s.items()}])
-    ap, pp = sol_p.mesh_accelerations({k: torch.from_numpy(v)
-                                       for k, v in s.items()})
+    [(ap, pp)] = sol_p.mesh_accelerations([{k: torch.from_numpy(v)
+                                            for k, v in s.items()}])
     assert _rel(ar, ap) <= 1e-4 and _rel(pr, pp) <= 1e-4
     # the port always truncates its P2P pairs, as the reference's flat
     # solver advertises for its fused pass

@@ -43,9 +43,23 @@ synchronised at both edges: ghost, density, gradient and force loops,
 the rebucket check, kick/timestep, the wake scan on path C; inside them
 the pair engine's ``prepare`` and kernel launch), ms per step.
 
+``--path cosmo`` runs chip_smoke.py's SmallCosmoVolume (the port's
+example: 2*64^3 = 524,288 gas + DM particles in 100 Mpc/h, comoving,
+split mesh, constant-Lambda cooling, the multi engine) and ``--path dmo``
+bench.py's BENCH_MODE=dmo geometry (1,024,000 particles, mesh_N = 192,
+DMEngine): init_particles() and a warm-up window, then (1) steady:
+three windows, ms per step; (2) trace over a window, as above, with
+K1's one-species and cross-species P2P launches per step; (3) phases
+over a window (ghost, density, gradient, force, P2P gravity loops,
+rebucket check, cooling, the gas and DM kicks, the mesh update; inside
+them ``pair_flat.prepare`` and the kernel launch), ms per step.  A DMO
+window is 8 steps of one engine; the volume reaches a = 1 in ~13 steps,
+so each of its windows is a whole run() of a fresh engine after its
+init_particles().
+
 The last line printed is a JSON object with every number; it is also
 written to ``--out`` (default ``chiprun_out/torch_profile_step.json``,
-``torch_profile_<path>.json`` for a Sedov path).  Imports nothing of
+``torch_profile_<path>.json`` for the other paths).  Imports nothing of
 JAX.
 """
 
@@ -63,6 +77,7 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 from swift_subtask_dev_tpu_torch import engine as eng_mod  # noqa: E402
+from swift_subtask_dev_tpu_torch import engine_multi  # noqa: E402
 from swift_subtask_dev_tpu_torch.ops import (hydro_flat, pair_flat,  # noqa
                                              pair_packed, pair_ring,
                                              stencil)
@@ -73,6 +88,7 @@ BODIES = ("Density", "Gradient", "ForceGravity", "Force", "P2PGravity")
 SEDOV_PATHS = {"sedov-a": ("pallas", False, pair_packed),
                "sedov-c": ("pallas_ring", True, pair_ring)}
 SEDOV_N, SEDOV_T_END, SEDOV_T_WARM = 51, 0.05, 0.025
+GRAVITY_PATHS = ("cosmo", "dmo")
 
 
 def pair_body(kernel_name: str):
@@ -313,10 +329,155 @@ def sedov_profile(path, card, device):
     return res
 
 
+def gravity_phases(eng, n_steps):
+    """ms per step of the multi-species or DM step's phases over
+    ``n_steps`` steps (None: to the end of the run)."""
+    pt = PhaseTimer()
+    pt.wrap(eng_mod, "_ghost_density", "ghost")
+    for name in ("density_loop", "gradient_loop", "force_loop",
+                 "p2p_gravity_loop"):
+        pt.wrap(hydro_flat, name, name)
+    for mod in (eng_mod, engine_multi):
+        # each module's own binding (engine_multi imports them by name)
+        for name, label in (("_rebucket_phase", "rebucket_phase"),
+                            ("_gas_kdk", "kick_timestep_gas"),
+                            ("_dm_kdk", "kick_timestep_dm"),
+                            ("_apply_cooling", "cooling")):
+            if hasattr(mod, name):
+                pt.wrap(mod, name, label)
+    pt.wrap(engine_multi, "_mesh_update_multi", "mesh_update")
+    pt.wrap(eng_mod, "_mesh_update", "mesh_update")
+    pt.wrap(pair_flat, "prepare", "pair_prepare")
+    pt.wrap(pair_flat, "pair_apply_kernel", "pair_kernel")
+    try:
+        t0 = sync_s()
+        n_steps = (eng.run() if n_steps is None
+                   else eng.run(max_steps=n_steps))
+        wall = 1e3 * (sync_s() - t0)
+    finally:
+        pt.restore()
+    return {"steps": n_steps, "ms_per_step": wall / n_steps,
+            "phase_ms_per_step": {k: v / n_steps for k, v in pt.ms.items()},
+            "phase_calls": pt.calls}
+
+
+def gravity_profile(path, card, device, n_steps=8):
+    """The SmallCosmoVolume or the DMO configuration of chip_smoke.py.
+
+    The volume's nearly uniform IC reaches a = 1 in ~13 steps, so each of
+    its windows is a whole run of a fresh engine (init_particles(), then
+    run() to a_end, the init left out of the window); the DMO run's
+    windows are ``n_steps`` consecutive steps of one engine."""
+    import chip_smoke
+    pair_flat.LIBRARY.load()
+
+    def build():
+        if path == "cosmo":
+            from swift_subtask_dev_tpu_torch.examples import (
+                small_cosmo_volume as scv)
+            e = scv.make_engine(device=device)[0]
+            return e, sum(int((sp["mask"] > 0).sum())
+                          for sp in e.state.values())
+        return dmo_engine(device)
+
+    eng, n = build()
+    res = {"card": card, "torch": torch.__version__,
+           "cuda": torch.version.cuda, "path": path, "n_particles": n,
+           "cdim": list(eng.grid.cdim), "K": eng.grid.K,
+           "chip_smoke_steps": (chip_smoke.COSMO_STEPS if path == "cosmo"
+                                else chip_smoke.DMO_STEPS)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = sync_s()
+    eng.init_particles()
+    seen = {"n_active": 0}
+
+    def count(d):
+        seen["n_active"] += int(d["n_active"])
+
+    def window(e, on_step=None):
+        """One window's steps (counted); the volume's: a fresh engine."""
+        if path == "cosmo":
+            if e is None:
+                e = build()[0]
+                e.init_particles()
+                torch.cuda.synchronize()
+            return e, lambda: e.run(on_step=on_step)
+        return e, lambda: e.run(max_steps=n_steps, on_step=on_step)
+
+    _, run = window(eng)
+    steps = run()
+    res["warm"] = {"seconds": sync_s() - t0, "steps": steps,
+                   "peak_device_GiB":
+                       torch.cuda.max_memory_allocated() / 2 ** 30}
+    print("warm", json.dumps(res["warm"]), flush=True)
+    rates = []
+    for _ in range(3):
+        seen["n_active"] = 0
+        e, run = window(None if path == "cosmo" else eng, count)
+        t0 = sync_s()
+        steps = run()
+        dt = sync_s() - t0
+        rates.append({"seconds": dt, "steps": steps,
+                      "ms_per_step": 1e3 * dt / steps,
+                      "particle_steps_per_s": steps * n / dt,
+                      "active_updates_per_s": seen["n_active"] / dt})
+    res["steady"] = rates
+    print("steady", json.dumps(res["steady"]), flush=True)
+    e, run = window(None if path == "cosmo" else eng)
+    pair_flat.reset_launches()
+    box = {}
+
+    def traced():
+        box["steps"] = run()
+    res["trace"] = trace(e, 1, traced)
+    k = box["steps"]
+    tr = res["trace"]
+    tr["steps"] = k
+    for key in ("device_kernels_per_step", "other_kernels_ms_per_step",
+                "other_kernels_per_step"):
+        tr[key] /= k
+    for key in ("pair_kernel_ms_per_step", "pair_kernel_launches_per_step"):
+        tr[key] = {b: v / k for b, v in tr[key].items()}
+    tr["flat_launches_per_step"] = {
+        name: v / k for name, v in pair_flat.LAUNCHES.items()}
+    print("trace", json.dumps(tr), flush=True)
+    e, _ = window(None if path == "cosmo" else eng)
+    res["phases"] = gravity_phases(e, None if path == "cosmo" else n_steps)
+    print("phases", json.dumps(res["phases"]), flush=True)
+    return res
+
+
+def dmo_engine(device):
+    """bench.py's BENCH_MODE=dmo configuration on the port (chip_smoke.py
+    phase 10)."""
+    from swift_subtask_dev_tpu_torch.grid import CellGrid
+    from swift_subtask_dev_tpu_torch.ics import uniform_box_ic
+    from swift_subtask_dev_tpu_torch.models.gravity import (GravityParams,
+                                                            GravitySolver)
+    ic = uniform_box_ic(n=N1, jitter=0.2, seed=3)
+    gp = GravityParams(G=1.0, eps=0.5 / N1, mesh_N=MESH_N)
+    r_cut = gp.r_cut_ratio * gp.a_smooth * 1.0 / gp.mesh_N
+    grid = CellGrid.build_columns(ic["box"], interaction_range=r_cut * 1.25,
+                                  pos=ic["pos"], headroom=1.4)
+    solver = GravitySolver(gp, grid, device=device)
+    eng = eng_mod.DMEngine(
+        grid, eng_mod.EngineConfig(dt_min=1e-9, dt_max=2e-4,
+                                   eta_grav=gp.eta,
+                                   p2p_reach=solver.pm.r_cut,
+                                   mesh_dt_max=64 * 2e-4),
+        0.0, 1.0, gravity_fn=solver.gas_short_range_fn(), eps_soft=gp.eps,
+        mesh_fn=solver.gas_mesh_fn(), mesh_dt_scale=solver.pm.r_s,
+        device=device)
+    eng.solver_builder = lambda g: GravitySolver(gp, g, device=device)
+    eng.load_dm(ic["pos"], ic["m"], ic["v"])
+    return eng, len(ic["pos"])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--path", default="main",
-                    choices=["main"] + sorted(SEDOV_PATHS))
+                    choices=["main"] + sorted(SEDOV_PATHS)
+                    + list(GRAVITY_PATHS))
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     out = args.out or os.path.join(
@@ -330,7 +491,9 @@ def main():
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.path != "main":
-        res = sedov_profile(args.path, card, device)
+        res = (gravity_profile(args.path, card, device)
+               if args.path in GRAVITY_PATHS
+               else sedov_profile(args.path, card, device))
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
         with open(out, "w") as f:
             json.dump(res, f, indent=1)
