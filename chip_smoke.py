@@ -94,7 +94,32 @@ Phases (any failure ends the script with a non-zero exit and no result):
    DMO_STEPS steps: ms per step and particle-steps/s, only K1's P2P body
    launched, and the brute-force acceleration check of phase 9 on 1,024
    particles.
-11. Prints {"kernels": [...]} (each kernel's launches on its path, errors,
+11. EAGLE volume without black holes (the port's example at run.yml's
+   size: 256,902 gas, 262,144 DM and 5,242 stars in 25 Mpc; EAGLE
+   cooling with the entropy floor, chemistry smoothing on K1's chemistry
+   body, the stars' ghost, star formation, thermal feedback, enrichment,
+   the limiter): init_particles() and run() for at most EAGLE_STEPS
+   steps with the launch counters reset just before; ms per step,
+   particle-steps/s, active-particle updates/s, wakes, heating events,
+   conversions, n_lost and peak memory.  Checks: finite state, every K1
+   body of the path launched (the timebin and chemistry bodies among
+   them), float64 brute force on the final state (density of 1,024 gas
+   particles active in the last step <= 1e-4; the chemistry-smoothed Z
+   of 1,024 gas particles <= 1e-4 of max; the short-range accelerations
+   of 1,024 stars from the gas and of 1,024 gas from the stars <= 1e-4
+   of max; every star's
+   neighbour mass <= 1e-5 outside pairs at rounding distance from the
+   kernel's edge); the chemistry body against its pair plain version
+   (tolerances of phase 3, pairs per warp equal, a statistics launch and
+   a second launch bit for bit) and against the stencil-form plain
+   version (<= 1e-5 of max).  Then the aged-stars pass: a fresh volume
+   whose loaded stars, after init, are just older than the SNII delay
+   and in the gas's smallest bin, 2 steps with each layer timed
+   (synchronised): heated gas > 0 with each jump heating events x
+   delta_u exactly, enriched mass > 0, total mass conserved to 1e-6.
+   Last, the committed table of the reference's RNG draws
+   (``utils/rng_table.json``) reproduced bit for bit on the card.
+12. Prints {"kernels": [...]} (each kernel's launches on its path, errors,
    times, and its bound: the larger of the bytes it must move -- the
    particles' fields it reads, the output slots it writes and the index
    words it reads -- over 3.35 TB/s and its FP32 operations on the run's
@@ -130,6 +155,11 @@ COSMO_STEPS = 32        # the SmallCosmoVolume phase's most steps
 COSMO_BODIES = ("density", "gradient", "force", "p2p_gravity",
                 "p2p_gravity_cross")
 DMO_STEPS = 8
+EAGLE_STEPS = 16        # the EAGLE volume phase's most steps
+# the K1 bodies of the EAGLE volume's path (the limiter's timebin body and
+# the chemistry body among them)
+EAGLE_BODIES = COSMO_BODIES + ("timebin", "chem_smooth")
+CHEM_REPLACES = "swift_subtask_dev_tpu/ops/stencil.py:597"
 # the example's default end time: the shock radius is 0.347 (18 h of
 # the IC); much later the shell nears the periodic box's faces
 SEDOV_T_END = 0.05
@@ -143,6 +173,9 @@ PEAK_FP32_PER_S = 67e12
 # pair mask and the accumulation into the outputs are included
 OPS_PER_PAIR = {"density": 78, "gradient": 63, "force": 167,
                 "force_gravity": 243, "p2p_gravity": 82, "timebin": 22,
+                # 14 separation + r2, 2 pair mask, 3 range test, 2 u2,
+                # 1 sqrt, 17 cubic spline, 1 m w, 10 products + 10 sums
+                "chem_smooth": 60,
                 # the cost probe's bodies (csrc/probe_bodies.cuh): 14 for
                 # the separation and r2, 2 for the pair mask, 1 for the
                 # sum, plus each body's own
@@ -1030,6 +1063,346 @@ def phase_dmo(device, card, n1=80, mesh_N=192):
                    solver.pm.r_s, solver.pm.r_cut, card)
 
 
+def brute_z_smooth(grid, s, Z_sm, gamma, n_sample=1024, seed=2):
+    """float64 brute-force chemistry-smoothed metallicity of sampled live
+    gas particles, (sum_j m_j Z_j W(r_ij, h_i)) / rho_i over every live
+    particle j, the particle itself included (W(0): the self term), at
+    the state's h and rho; against ``Z_sm``: max error relative to the
+    largest sampled value."""
+    import torch
+    pos, live = live_f64(grid, s)
+    dev = pos.device
+    box = torch.tensor(grid.box, dtype=torch.float64, device=dev)
+    m = s["m"].reshape(-1)[live].double()
+    Z = s["Z"].reshape(-1)[live].double()
+    h = s["h"].reshape(-1)[live].double()
+    rho = s["rho"].reshape(-1)[live].double()
+    idx = sample(pos.shape[0], n_sample, seed, dev)
+    norm = 16.0 / math.pi
+    out = []
+    for c in range(0, idx.numel(), 32):
+        i = idx[c:c + 32]
+        d = pos[i][:, None, :] - pos[None, :, :]
+        d = d - box * torch.round(d / box)
+        r = torch.sqrt((d * d).sum(-1))
+        H = gamma * h[i][:, None]
+        x = r / H
+        w = torch.clamp(1 - x, min=0) ** 3 - 4 * torch.clamp(0.5 - x,
+                                                             min=0) ** 3
+        out.append((m[None, :] * Z[None, :] * norm * w / H ** 3).sum(-1)
+                   / rho[i])
+    ref = torch.cat(out)
+    got = Z_sm.reshape(-1)[live][idx].double()
+    return (got - ref).abs().max().item() / ref.abs().max().item(), \
+        ref.mean().item()
+
+
+def brute_ngb_mass(grid, stars, gas, ngb_mass, gamma, band=1e-5):
+    """Each live star's gas neighbour mass (r < gamma h_star) in float64
+    over every live gas particle, against ``ngb_mass``.  A pair within
+    ``band`` (relative, on r^2) of the kernel's edge can fall either side
+    in f32: the port's value must lie within [the sum without them, the
+    sum with them], each widened by ``band``.  Returns (worst relative
+    excess outside that interval, stars, pairs in the band)."""
+    import torch
+    pos_s, live_s = live_f64(grid, stars)
+    pos_g, live_g = live_f64(grid, gas)
+    dev = pos_s.device
+    box = torch.tensor(grid.box, dtype=torch.float64, device=dev)
+    m = gas["m"].reshape(-1)[live_g].double()
+    h = stars["h"].reshape(-1)[live_s].double()
+    got = ngb_mass.reshape(-1)[live_s].double()
+    worst, n_band = 0.0, 0
+    for c in range(0, pos_s.shape[0], 32):
+        d = pos_s[c:c + 32][:, None, :] - pos_g[None, :, :]
+        d = d - box * torch.round(d / box)
+        r2 = (d * d).sum(-1)
+        edge2 = (gamma * h[c:c + 32]) ** 2
+        q = r2 / edge2[:, None]
+        lo = (m[None, :] * (q < 1 - band)).sum(-1)
+        hi = (m[None, :] * (q < 1 + band)).sum(-1)
+        n_band += int(((q >= 1 - band) & (q < 1 + band)).sum())
+        g = got[c:c + 32]
+        excess = torch.clamp(lo * (1 - band) - g, min=0) + torch.clamp(
+            g - hi * (1 + band), min=0)
+        worst = max(worst, (excess / hi.clamp_min(1e-300)).max().item())
+    return worst, pos_s.shape[0], n_band
+
+
+class SyncTimer:
+    """Wraps functions of modules, classes or objects so that each call is
+    synchronised at both edges and its wall time (the device's, for work
+    that the call waits for) and its calls are summed per label."""
+
+    def __init__(self):
+        self.ms, self.calls, self._undo = {}, {}, []
+
+    def wrap(self, owner, attr, label):
+        import torch
+        orig = getattr(owner, attr)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            torch.cuda.synchronize()
+            self.ms[label] = self.ms.get(label, 0.0) \
+                + 1e3 * (time.perf_counter() - t0)
+            self.calls[label] = self.calls.get(label, 0) + 1
+            return out
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, orig))
+
+    def restore(self):
+        for owner, attr, orig in reversed(self._undo):
+            setattr(owner, attr, orig)
+        self._undo.clear()
+
+
+def eagle_phase_timer(eng):
+    """A SyncTimer over the EAGLE step's layers (the phases of PERF.md
+    section 5): the gas loops, chemistry smoothing, the stars' ghost,
+    short-range gravity, feedback, enrichment, cooling, the gas KDK,
+    star formation, the collisionless KDK, rebuckets and the mesh."""
+    from swift_subtask_dev_tpu_torch import engine_multi as em
+    from swift_subtask_dev_tpu_torch.ops import hydro_flat, species_ghost
+    from swift_subtask_dev_tpu_torch.subgrid.star_formation import (
+        EagleStarFormation)
+    pt = SyncTimer()
+    pt.wrap(em, "_gas_loops", "gas_loops")
+    pt.wrap(hydro_flat, "chemistry_smooth_loop", "chemistry_smoothing")
+    pt.wrap(species_ghost, "species_h_iterate", "star_ghost")
+    pt.wrap(hydro_flat, "p2p_gravity_loop", "p2p_gravity")
+    pt.wrap(em, "_feedback", "feedback")
+    pt.wrap(em, "_enrich", "enrichment")
+    pt.wrap(eng, "cooling_fn", "cooling")
+    pt.wrap(em, "_gas_kdk", "kick_timestep_limiter_gas")
+    pt.wrap(EagleStarFormation, "conversion_mask", "star_formation")
+    pt.wrap(em, "_convert_gas_to_stars", "star_formation")
+    pt.wrap(em, "_dm_kdk", "kick_timestep_dm_stars")
+    pt.wrap(em, "_rebucket_phase", "rebucket")
+    pt.wrap(em, "_mesh_update_multi", "mesh")
+    return pt
+
+
+def phase_eagle(device, card):
+    """The EAGLE volume without black holes (the port's example at
+    run.yml's size: 256,902 gas, 262,144 DM and 5,242 stars in 25 Mpc):
+    init_particles() and run() for at most EAGLE_STEPS steps with the
+    launch counters reset just before, the checks, the chemistry body
+    against its plain versions, the layers' synchronised ms over two
+    more steps, the aged-stars pass and the RNG table."""
+    import numpy as np
+    import torch
+    from swift_subtask_dev_tpu_torch.examples import eagle_volume as ev
+    from swift_subtask_dev_tpu_torch.ops import hydro_flat, pair_flat
+    from swift_subtask_dev_tpu_torch.ops import stencil
+    from swift_subtask_dev_tpu_torch.utils import prng
+    eng, solver, ic = ev.make_engine(device=device)
+    counts = {n: int((sp["mask"] > 0).sum()) for n, sp in eng.state.items()}
+    n = sum(counts.values())
+    print(f"phase 11 (EAGLE volume): {counts} = {n} particles, box "
+          f"{ic['box'][0]} Mpc, grid cdim={list(eng.grid.cdim)} "
+          f"K={eng.grid.K} (stars {eng.state['stars']['mask'].shape[1]}), "
+          f"r_cut {solver.pm.r_cut:.4f} Mpc, mesh_N {solver.gp.mesh_N}")
+    check(counts == {"gas": 256902, "dm": 262144, "stars": 5242},
+          f"expected 256,902 gas, 262,144 DM and 5,242 stars: {counts}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pair_flat.reset_launches()
+    t0 = time.perf_counter()
+    diag = eng.init_particles()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    seen = {k: 0 for k in ("n_active", "n_woken", "n_heated",
+                           "n_converted", "n_lost")}
+    seen["m_enriched"] = 0.0
+
+    def on_step(d):
+        for k in seen:
+            seen[k] += float(d[k]) if k == "m_enriched" else int(d[k])
+    steps = eng.run(max_steps=EAGLE_STEPS, on_step=on_step)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(pair_flat.LAUNCHES)
+    a_now = eng.cosmology.a_of_ti(eng.timeline.ti_current)
+    print(f"  init_particles {t1 - t0:.3f} s (ghost iterations "
+          f"{diag['n_ghost_iter']}); {steps} steps in {t2 - t1:.3f} s "
+          f"({1e3 * (t2 - t1) / steps:.2f} ms/step, "
+          f"{steps * n / (t2 - t1):.1f} particle-steps/s, "
+          f"{seen['n_active'] / (t2 - t1):.1f} active-particle updates/s), "
+          f"a {ev.RUN_YML['Cosmology']['a_begin']} -> {a_now:.6f}, mesh "
+          f"updates {eng.n_mesh_updates}, re-grids {eng.n_regrids} [{card}]")
+    print(f"  wakes {seen['n_woken']}, feedback heating events "
+          f"{seen['n_heated']}, conversions {seen['n_converted']}, n_lost "
+          f"{seen['n_lost']}, enriched mass {seen['m_enriched']:.6e}")
+    print(f"  peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+    print(f"  kernel launches in the run: {launches}")
+    for name, sp in eng.state.items():
+        bad = finite_state(sp)
+        check(not bad, f"{name}: non-finite state fields: {bad}")
+    for name in EAGLE_BODIES:
+        check(launches.get(name, 0) > 0, f"pair_flat_{name}: kernel never "
+              "launched on the EAGLE volume's path")
+    check(a_now > ev.RUN_YML["Cosmology"]["a_begin"],
+          "the run did not advance a")
+
+    gas, stars = eng.state["gas"], eng.state["stars"]
+    P = eng.sph
+    live = gas["mask"] > 0
+    act = live & torch.as_tensor(
+        eng.timeline.active_bins_mask(), device=device)[
+        gas["time_bin"].clamp(0, 56).long()]
+    err, ref_mean = brute_density(eng, P, state=gas,
+                                  among=act.reshape(-1)[live.reshape(-1)])
+    print(f"  brute-force float64 density on {min(1024, int(act.sum()))} "
+          f"gas particles active in the last step (of {int(act.sum())}): "
+          f"mean {ref_mean:.6e}, max relative error {err:.3e}")
+    check(err <= 1e-4, "density disagrees with the float64 brute force")
+    Z_k, _ = hydro_flat.chemistry_smooth_loop(eng.grid, gas, P)
+    err, z_mean = brute_z_smooth(eng.grid, gas, Z_k, P.kernel.gamma)
+    print(f"  chemistry-smoothed Z of 1024 gas particles: float64 brute "
+          f"force, mean {z_mean:.6e}, max error {err:.3e} of the largest")
+    check(err <= 1e-4, "smoothed Z disagrees with the float64 brute force")
+    H = solver._H_list(3)
+    gp = solver.gp
+    hold_p2p_brute("stars from the gas", eng.grid, stars, gas, gp.G, H[2],
+                   H[0], solver.pm.r_s, solver.pm.r_cut, card)
+    hold_p2p_brute("gas from the stars", eng.grid, gas, stars, gp.G, H[0],
+                   H[2], solver.pm.r_s, solver.pm.r_cut, card)
+    ngb = stencil.star_ngb_mass_loop(eng.grid, stars, gas, P)
+    worst, n_s, n_band = brute_ngb_mass(eng.grid, stars, gas, ngb,
+                                        P.kernel.gamma)
+    print(f"  ngb_mass of all {n_s} stars: float64 brute force, worst "
+          f"relative excess {worst:.3e} ({n_band} pairs within 1e-5 of "
+          f"the kernel's edge)")
+    check(worst <= 1e-5, "stars' ngb_mass disagrees with the brute force")
+
+    # the chemistry body against its plain versions at the final state
+    pp = hydro_flat.chem_smooth_pass(gas, P)
+    launch, body = pair_flat.prepare(eng.grid, pp), pp.body
+    print(f"  chemistry smoothing (W {launch.W}), K1 against its plain "
+          "pair version:")
+    ms, k1_plain_ms, max_abs, pairs = hold_against_plain(
+        pair_flat, launch, body, card)
+    same = bool(torch.equal(pair_flat.pair_apply_kernel(launch, body),
+                            pair_flat.pair_apply_kernel(launch, body)))
+    print(f"    two launches on the same inputs: "
+          f"{'bit-identical' if same else 'DIFFER'}")
+    check(same, "chem_smooth: two launches gave other bits")
+    (Z_p, e_p), plain_ms = time_ms(
+        lambda: stencil.chemistry_smooth_loop(eng.grid, gas, P), 1,
+        warmup=False)
+    (Z_k, e_k), loop_ms = time_ms(
+        lambda: hydro_flat.chemistry_smooth_loop(eng.grid, gas, P), 5)
+    errs = []
+    for a, b in ((Z_k, Z_p), (e_k, e_p)):
+        errs.append(((a.double() - b.double()).abs().max()
+                     / b.double().abs().max()).item())
+    print(f"    against the stencil-form plain version "
+          f"(ops/stencil.chemistry_smooth_loop): Z {errs[0]:.3e}, element "
+          f"fractions {errs[1]:.3e} of max; loop {loop_ms:.4f} ms, stencil "
+          f"plain {plain_ms:.1f} ms, pair plain {k1_plain_ms:.1f} ms "
+          f"[{card}]")
+    check(max(errs) <= 1e-5, "chem_smooth: the kernel and the stencil-form "
+          "plain version disagree")
+    b_ms, b_by = bound(body, flat_work(launch, body), pairs)
+    print(f"    bound {b_ms:.4f} ms ({b_by}); the kernel at "
+          f"{ms / b_ms:.1f}x it [{card}]")
+    kernel = entry("pair_flat_chem_smooth", FLAT_SOURCE,
+                   CHEM_REPLACES + " (XLA in the reference, no Pallas "
+                   "kernel; a port-only body of K1, which replaces "
+                   + FLAT_REPLACES + ")", launches["chem_smooth"], max_abs,
+                   ms, plain_ms, b_ms, b_by)
+    del Z_p, e_p, Z_k, e_k, eng, gas, stars, launch, pp
+    hold_aged_stars(device, card)
+
+    rows, bad = prng.check_table(device)
+    print(f"  RNG table: {rows} reference draws (threefry and pair hash), "
+          f"{bad} differ on the card")
+    check(rows >= 128 and bad == 0, "the card's draws differ from the "
+          "reference's table")
+    return [kernel]
+
+
+def hold_aged_stars(device, card, n_steps=2):
+    """A fresh EAGLE volume whose loaded stars, after init_particles(),
+    are given a birth time just older than the SNII delay and the gas's
+    smallest time bin (so they are active, fire and enrich in the first
+    step), then ``n_steps`` steps with each layer of the step timed
+    (synchronised at both edges).  Checks the heated gas, each heated
+    particle's jump (heating events x delta_u, f32 exact), the enriched
+    mass and the total mass of gas, stars and DM across the pass."""
+    import numpy as np
+    import torch
+    from swift_subtask_dev_tpu_torch.examples import eagle_volume as ev
+    from swift_subtask_dev_tpu_torch.ops import stencil
+    eng, _, _ = ev.make_engine(device=device)
+    eng.init_particles()
+    st, gas = eng.state["stars"], eng.state["gas"]
+    delay = eng.feedback.snii_delay
+    a0 = eng.cosmology.a_of_ti(eng.timeline.ti_current)
+    born = float(np.float32(a0 - 1.05 * delay))
+    loaded = (st["mask"] > 0) & (st["birth_time"] <= 0)
+    bin_ = int(gas["time_bin"][gas["mask"] > 0].min())
+    st["birth_time"] = torch.where(loaded, born, st["birth_time"])
+    st["time_bin"] = torch.where(loaded, bin_, st["time_bin"]).to(
+        st["time_bin"].dtype)
+
+    def total_mass():
+        return sum(float((sp["m"] * sp["mask"]).double().sum())
+                   for sp in eng.state.values())
+    m0 = total_mass()
+    captured = []
+    orig = stencil.feedback_apply_loop
+
+    def capture(*a, **kw):
+        out = orig(*a, **kw)
+        captured.append(out)
+        return out
+    stencil.feedback_apply_loop = capture
+    pt = eagle_phase_timer(eng)
+    n_heated, m_enr = [], []
+    try:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            d = eng.step()
+            n_heated.append(int(d["n_heated"]))
+            m_enr.append(float(d["m_enriched"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        stencil.feedback_apply_loop = orig
+        pt.restore()
+    m1 = total_mass()
+    du_step = float(np.float32(eng.feedback.delta_u))
+    exact = heated_n = 0
+    for du, nev in captured:
+        hot = nev > 0
+        heated_n += int(hot.sum())
+        exact += int((du[hot] == nev[hot].to(torch.float32)
+                      * du_step).sum())
+    fb_done = int((eng.state["stars"]["fb_done"] > 0).sum())
+    print(f"  aged stars (birth time a = {born:.6f} at a = {a0:.6f}, SNII "
+          f"delay {delay}, bin {bin_}): {n_steps} steps in {wall:.3f} s; "
+          f"heated gas per step {n_heated} ({exact} of {heated_n} jumps "
+          f"equal to events x delta_u), {fb_done} stars done, enriched "
+          f"mass per step {m_enr}; total mass {m0:.9e} -> {m1:.9e} "
+          f"(relative change {abs(m1 - m0) / m0:.3e}) [{card}]")
+    print(f"  layers of those steps, synchronised ms per step (of "
+          f"{1e3 * wall / n_steps:.2f}): "
+          + ", ".join(f"{lb} {v / n_steps:.3f}"
+                      for lb, v in sorted(pt.ms.items(),
+                                          key=lambda kv: -kv[1]))
+          + f" [{card}]")
+    check(n_heated[0] > 0, "the aged stars heated no gas")
+    check(exact == heated_n, "a heated particle's jump is not events x "
+          "delta_u")
+    check(m_enr[0] > 0, "the aged stars enriched no gas")
+    check(abs(m1 - m0) <= 1e-6 * m0, "the pass did not conserve mass")
+
+
 def phase_vpu_peak(device, card):
     """T1: the FP32 probe against its plain version at 2 x 64 steps, then
     its entry point (the launch counter reset just before)."""
@@ -1120,6 +1493,7 @@ def main():
         kernels += phase_probe_kernel(device, card)
         kernels += phase_cosmo(device, card)
         phase_dmo(device, card)
+        kernels += phase_eagle(device, card)
     except (PhaseFailed, ImportError, RuntimeError, ValueError,
             OSError, subprocess.SubprocessError) as e:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}",

@@ -446,3 +446,43 @@ struct Timebin {
     return in_range(si, nj, r2, p);
   }
 };
+
+// ---------------------------------------------------------------------------
+// chemistry smoothing (chemistry/EAGLE/chemistry_iact.h; the reference's
+// XLA ops/stencil.py:597 chemistry_smooth_loop): fields (mask, off0-2, h,
+// hinv, m, Z, e0-e8); 10 sums, m_j W(r, h_i) times Z_j and each element
+// fraction e_j[k], over the pairs with (r hinv_i)^2 < gamma2 (the
+// reference's u2 test; ops/stencil.py and ops/hydro_flat.py compute the
+// same)
+// ---------------------------------------------------------------------------
+struct ChemSmooth {
+  static constexpr int F = 17, NS = 10, NM = 0, NP = 4;
+  enum { H = 4, HINV = 5, M = 6, Z = 7, E0 = 8 };
+  static __device__ __forceinline__ bool in_range(
+      const float* si, const float*, float r2, const BodyParams& p) {
+    const float u2 = r2 * si[HINV] * si[HINV];
+    return u2 < p.v[P_GAMMA2];
+  }
+  // u2 < gamma2 bounds r2 by gamma2 h^2 up to the rounding of hinv, which
+  // the warp filter's slack covers
+  static __device__ __forceinline__ float lane_reach2(
+      const float* si, const BodyParams& p) {
+    return p.v[P_GAMMA2] * si[H] * si[H];
+  }
+  static __device__ __forceinline__ float row_reach2(const float*,
+                                                     const BodyParams&) {
+    return 0.f;
+  }
+  static __device__ __forceinline__ bool eval(
+      const float* si, const float* nj, float, float, float, float r2,
+      const BodyParams& p, float* sums, float*) {
+    const float u2 = r2 * si[HINV] * si[HINV];
+    float w, dw;
+    cubic_deval(sqrtf(u2), p, w, dw);
+    const float mw = nj[M] * w;
+    sums[0] = mw * nj[Z];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) sums[1 + k] = mw * nj[E0 + k];
+    return u2 < p.v[P_GAMMA2];
+  }
+};

@@ -8,7 +8,11 @@
 // slots a column) and the j rows from another species' AoS (Wj rows a
 // column) on the same column grid, with range words over the j species'
 // blocks.  Only the staging of j rows reads Wj; the i tiles, the range
-// words and the statistics are laid out by the i side.  The six
+// words and the statistics are laid out by the i side.  A seventh body,
+// chemistry smoothing (ChemSmooth), has no TPU kernel: the reference
+// computes it in XLA (ops/stencil.py:597 chemistry_smooth_loop), as a
+// (C, W, 27 W) tile on the column grid; its pair set is the density
+// body's, so it runs on this walk.  The six
 // synthetic bodies of the cost probe (csrc/probe_bodies.cuh;
 // tools/probe_kernel.py:26 main of the reference) run on the same kernel
 // through their own entries.
@@ -621,6 +625,7 @@ PAIR_FLAT_ENTRY(force, Force)
 PAIR_FLAT_ENTRY(force_gravity, ForceGravity)
 PAIR_FLAT_ENTRY(p2p_gravity, P2PGravity)
 PAIR_FLAT_ENTRY(timebin, Timebin)
+PAIR_FLAT_ENTRY(chem_smooth, ChemSmooth)
 PAIR_FLAT_ENTRY(probe_a00, ProbeA00)
 PAIR_FLAT_ENTRY(probe_a, ProbeA)
 PAIR_FLAT_ENTRY(probe_b, ProbeB)

@@ -86,6 +86,12 @@ class StepTables(NamedTuple):
     # new step start) + (new kick1), timestep_limit_part
     # (timestep_limiter.h:64)
     wake_du: torch.Tensor      # (57, 57) f32 — the thermal one
+    max_active_bin: int = 0    # largest bin active at ti_current (the sync
+    # target of feedback-heated particles, runner_do_sync)
+    ti_lo: int = 0             # ti_current & 0x7FFFFFFF (RNG fold)
+    ti_hi: int = 0             # (ti_current >> 31) & 0x7FFFFFFF (RNG fold)
+    birth_time: float = 0.0    # f32 scale factor (cosmological) or time
+    # at ti_current, stamped on newly formed stars
 
 
 # pair engine of each backend (the reference's _loops table)
@@ -103,6 +109,7 @@ class EngineConfig:
     # (27-cell grid, pair_packed) | 'pallas_ring' (27-cell grid, pair_ring)
     with_self_gravity: bool = False
     max_ghost_iterations: int = 30
+    species_ghost_iterations: int = 8  # the stars' ghost (multi engine)
     rebucket_safety: float = 0.9  # fraction of the safe margin to use
     p2p_reach: float = 0.0    # P2P gravity r_cut (coverage margin term)
     eta_grav: float = 0.025   # Gravity:eta
@@ -634,6 +641,13 @@ def _dm_tiles(grid: CellGrid, pos, m, v, pid, device, zsort: bool):
             "drift_accum": torch.zeros((), dtype=F32, device=device)}
 
 
+def _pad_slots(a: torch.Tensor, extra: int, fill=0) -> torch.Tensor:
+    """(C, K, ...) -> (C, K + extra, ...), the new slots ``fill``."""
+    pad = torch.full((a.shape[0], extra) + tuple(a.shape[2:]), fill,
+                     dtype=a.dtype, device=a.device)
+    return torch.cat([a, pad], dim=1)
+
+
 def _mesh_update(mesh_fn, s, dt_close: float, dt_open: float):
     """Separate PM-mesh kick at a mesh-step boundary (kick.h:255): close
     the old mesh half-kick with the OLD field, recompute the field, open
@@ -703,9 +717,11 @@ class Engine:
         self.n_shrink_regrids = 0   # occupancy re-grids
 
     # --- setup ------------------------------------------------------------
-    def load_particles(self, pos, m, v, u, h, pid=None):
+    def load_particles(self, pos, m, v, u, h, pid=None, Z=None,
+                       elem_frac=None):
         """Bucket raw particle arrays into the tiled state (z-sorted on the
-        flat backend)."""
+        flat backend); ``Z`` (N,) and ``elem_frac`` (N, 9) are the
+        chemistry carriers, when the run has them."""
         n = len(pos)
         if pid is None:
             pid = np.arange(n, dtype=np.int32)
@@ -718,6 +734,10 @@ class Engine:
             "u": np.asarray(u, np.float32),
             "u_full": np.asarray(u, np.float32),
         }
+        if Z is not None:
+            fields["Z"] = np.asarray(Z, np.float32)
+        if elem_frac is not None:
+            fields["elem_frac"] = np.asarray(elem_frac, np.float32)
         out, mask, off, n_over = bucket_fields(
             self.grid, np.asarray(pos), fields, device=self.device,
             zsort=self.cfg.backend == "flat")
@@ -884,7 +904,11 @@ class Engine:
             aligned_up=on(aligned_up),
             dt_drift=_f32(dt_drift), dt_therm_drift=_f32(dt_therm_drift),
             max_bin=max_bin, time_base_inv=_f32(tb_inv),
-            wake_dv=on(wake_dv), wake_du=on(wake_du))
+            wake_dv=on(wake_dv), wake_du=on(wake_du),
+            max_active_bin=t.max_active_bin(),
+            ti_lo=ti & 0x7FFFFFFF, ti_hi=(ti >> 31) & 0x7FFFFFFF,
+            birth_time=_f32(c.a_of_ti(ti) if c is not None
+                            else t.time_of(ti)))
 
     def _wake_tables(self, ti: int):
         """(old_bin, new_bin) -> net wake kick (timestep_limit_part,
@@ -1003,14 +1027,21 @@ class Engine:
                 fields[k] = v.cpu().numpy()[mask]
         return pos, fields
 
-    def _rebucket_species(self, grid: CellGrid, pos, fields):
-        """Bucket extracted particles onto a new grid."""
+    def _rebucket_species(self, grid: CellGrid, pos, fields,
+                          extra_slots: int = 0):
+        """Bucket extracted particles onto a new grid, with
+        ``extra_slots`` free slots a cell after its capacity."""
         out, mask, off, n_over = bucket_fields(
             grid, pos, fields, device=self.device,
             zsort=self.cfg.backend == "flat")
         if int(n_over) != 0:
             raise RuntimeError(
                 f"{int(n_over)} particles overflow even the rebuilt grid")
+        if extra_slots > 0:
+            out = {k: _pad_slots(v, extra_slots, -1 if k == "pid" else 0)
+                   for k, v in out.items()}
+            mask, off = _pad_slots(mask, extra_slots), \
+                _pad_slots(off, extra_slots)
         return {"mask": mask, "off": off, **out,
                 "drift_accum": torch.zeros((), dtype=F32,
                                            device=self.device)}

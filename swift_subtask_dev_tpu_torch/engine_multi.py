@@ -1,22 +1,37 @@
-"""Multi-species engine: gas + dark matter in one step.
+"""Multi-species engine: gas, dark matter and stars in one step.
 
-Port of the gas and DM branches of the reference's ``engine_multi.py``
-(the SmallCosmoVolume configuration: SPHENIX gas + collisionless DM,
-comoving, P3M with split mesh kicks, constant-Lambda cooling).  Each
-species is its own padded tile state on the shared column grid, and one
-step drifts, rebuckets and kicks them all, with gravity sourced jointly:
+Port of the gas, DM and star branches of the reference's
+``engine_multi.py`` (the SmallCosmoVolume configuration, and the EAGLE
+volume without black holes: ``swift-tpu run.yml --eagle``).  Each species
+is its own padded tile state on the shared column grid, and one step
 
     drift(all species) -> rebucket(each on its own trigger) -> SPH loops
-    (gas) -> short-range gravity (every species from every species: K1's
-    one-species and cross-species P2P launches) -> cooling (gas) -> KDK
-    per species
+    (gas) -> chemistry smoothing (gas) -> the stars' smoothing-length
+    ghost -> short-range gravity (every species from every species: K1's
+    one-species and cross-species P2P launches) -> EAGLE thermal feedback
+    -> enrichment -> cooling (gas) -> gas KDK, limiter and feedback sync
+    -> star formation -> KDK of DM and stars
 
-and the PM mesh over the union of the species on its own split timestep.
-The host owns the timeline, as in ``engine.Engine``.
+with the PM mesh over the union of the species on its own split
+timestep.  The host owns the timeline, as in ``engine.Engine``.  The
+cross-species star loops are ``ops.stencil``'s, chemistry smoothing runs
+on the flat pair kernel's chemistry body
+(``hydro_flat.chemistry_smooth_loop``) and the stars' ghost is
+``ops.species_ghost``.
 
-Refused at construction (ROADMAP.md, queue 1 item 9): stars, black
-holes, sinks, neutrinos, star formation, feedback, enrichment, radiative
-transfer, tracers and external potentials, and every backend but "flat".
+Two reference hazards are not copied (ROADMAP.md, queue 3): the flat pair
+kernel's range words assume z-sorted columns, so the stars are z-sorted
+when they are loaded and after each step's star formation (the reference
+loads them and places newborn stars unsorted); and star formation leaves
+holes in the gas columns, which the kernel's live-tile counts assume
+absent, so the gas columns are compacted after a step that converted gas
+(the reference keeps the holes until the next rebucket).  Neither
+changes a particle's physics: slots are compared per particle id.
+
+Refused at construction (ROADMAP.md, queue 1 item 9): black holes,
+sinks, neutrinos, radiative transfer, tracers and external potentials,
+every star-formation, feedback and enrichment model but EAGLE's, and
+every backend but "flat".
 """
 
 from __future__ import annotations
@@ -26,20 +41,26 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from .engine import (Engine, EngineConfig, StepTables, NBINS,
-                     I32, _apply_cooling, _bin_counts, _dm_kdk, _dm_tiles,
-                     _f32, _gas_kdk, _gas_loops, _rebucket_phase,
-                     _tb_index, _where_active, bin_from_dt)
-from .grid.cellgrid import CellGrid
+from .engine import (Engine, EngineConfig, StepTables, NBINS, F32,
+                     I32, _bin_counts, _dm_kdk, _dm_tiles, _f32, _gas_kdk,
+                     _gas_loops, _pad_slots, _rebucket_phase, _tb_index,
+                     _where_active, apply_wake, bin_from_dt)
+from .grid.cellgrid import CellGrid, bucket_fields
 from .models.sph import sphenix
 from .models.sph.sphenix import CosmoFactors, SPHENIXParams
+from .ops import hydro_flat, species_ghost, stencil
+from .subgrid.chemistry import N_ELEMENTS
+from .subgrid.enrichment import EagleEnrichment
+from .subgrid.feedback import EagleThermalFeedback
+from .subgrid.star_formation import EagleStarFormation
 from .utils import timeline as tl
 
 # the species the port runs, in the gravity and mesh lists' order
-SPECIES = ("gas", "dm")
-_REFUSED = ("star_formation", "entropy_floor", "feedback", "bh_model",
-            "nu_model", "sink_model", "enrichment", "external_potential",
+SPECIES = ("gas", "dm", "stars")
+_REFUSED = ("bh_model", "nu_model", "sink_model", "external_potential",
             "rt_fn", "tracers")
+# free star slots a cell keeps after a re-grid (space_extra_sparts)
+STAR_EXTRA_SLOTS = 8
 
 
 def _species_active(sp: Dict, T: StepTables):
@@ -51,7 +72,8 @@ def _species_active(sp: Dict, T: StepTables):
 def _eps_of(eps_soft, name: str) -> float:
     """Per-species timestep softening: ``eps_soft`` is a float, or a
     (baryon, dm) pair (Gravity:comoving_baryon_softening /
-    comoving_DM_softening; timestep.h:141 uses the particle's own)."""
+    comoving_DM_softening; timestep.h:141 uses the particle's own):
+    stars take the baryon value."""
     if isinstance(eps_soft, tuple):
         return float(eps_soft[1] if name == "dm" else eps_soft[0])
     return float(eps_soft)
@@ -74,19 +96,155 @@ def _apply_gravity(gravity_fn, pool: Dict, acts: Dict):
     return pool
 
 
+def _reorder(sp: Dict, order: torch.Tensor) -> Dict:
+    """Every (C, K, ...) tile of a species in the slot order ``order``
+    ((C, K) int64, a permutation within each cell)."""
+    C, K = order.shape
+    out = {}
+    for k, v in sp.items():
+        if v.dim() >= 2 and tuple(v.shape[:2]) == (C, K):
+            idx = order.reshape((C, K) + (1,) * (v.dim() - 2)).expand(
+                v.shape)
+            out[k] = torch.gather(v, 1, idx)
+        else:
+            out[k] = v
+    return out
+
+
+def zsort_slots(sp: Dict) -> Dict:
+    """A species' live slots first in each cell, in ascending z (the flat
+    kernel's column order)."""
+    key = torch.where(sp["mask"] > 0, sp["off"][..., 2], float("inf"))
+    return _reorder(sp, torch.argsort(key, dim=1, stable=True))
+
+
+def compact_slots(sp: Dict) -> Dict:
+    """A species' live slots first in each cell, in their order."""
+    return _reorder(sp, torch.argsort((sp["mask"] <= 0).to(torch.int8),
+                                      dim=1, stable=True))
+
+
+def _convert_gas_to_stars(grid: CellGrid, gas: Dict, stars: Dict, conv,
+                          T: StepTables):
+    """Move converted gas particles into free star slots of their cell
+    (cell_convert_part.c:cell_convert_part_to_spart): the id and the whole
+    gas mass move to the star, stamped with the step's birth time; a
+    conversion beyond the cell's free slots is lost (counted).  Returns
+    (gas, stars, n_converted, n_lost)."""
+    C = grid.C
+    K_s = stars["mask"].shape[1]
+    dev = conv.device
+    n_star = torch.sum(stars["mask"] > 0, dim=1)
+    rank = torch.cumsum(conv.to(torch.int64), dim=1) - 1
+    dest_slot = n_star[:, None] + rank
+    ok = conv & (dest_slot < K_s)
+    n_lost = torch.sum(conv & ~ok)
+    cid = torch.arange(C, dtype=torch.int64, device=dev)[:, None]
+    flat_dest = torch.where(ok, cid * K_s + dest_slot, C * K_s).reshape(-1)
+
+    def scat(star_arr, gas_val):
+        tail = tuple(star_arr.shape[2:])
+        out = torch.cat([star_arr.reshape((C * K_s,) + tail),
+                         torch.zeros((1,) + tail, dtype=star_arr.dtype,
+                                     device=dev)], 0)
+        out[flat_dest] = gas_val.reshape((-1,) + tail).to(star_arr.dtype)
+        return out[:-1].reshape(star_arr.shape)
+
+    new = {"mask": ok.to(F32), "off": gas["off"],
+           "a_grav_mesh": gas["a_grav_mesh"], "v_full": gas["v_full"],
+           "m": gas["m"], "pid": gas["pid"], "h": gas["h"],
+           "time_bin": gas["time_bin"],
+           "birth_time": torch.full_like(gas["m"], T.birth_time),
+           "birth_density": gas["rho"],
+           "fb_done": torch.zeros_like(gas["m"]), "m_init": gas["m"]}
+    if "Z" in gas:
+        new["Z"] = gas["Z"]
+    if "elem_frac" in gas:
+        new["elem_frac"] = gas["elem_frac"]
+    stars = {**stars, **{k: scat(stars[k], v) for k, v in new.items()
+                         if k in stars}}
+    # newborn stars carry the gas's drift since its last rebucket
+    stars["drift_accum"] = torch.maximum(stars["drift_accum"],
+                                         gas["drift_accum"])
+    gas = {**gas, "mask": torch.where(ok, 0.0, gas["mask"])}
+    return gas, stars, torch.sum(ok), n_lost
+
+
+def _feedback(grid, p, feedback, gas, stars, T, act_s):
+    """EAGLE thermal feedback (stars -> gas).  Returns (gas, stars,
+    heated)."""
+    energy, fire = feedback.firing_energy(stars, T.birth_time, act_s)
+    # only firing stars can heat: their neighbour masses are all it needs
+    ngb_mass = stencil.star_ngb_mass_loop(grid, stars, gas, p, sel=fire)
+    du_add, nev = stencil.feedback_apply_loop(
+        grid, gas, {**stars, "fb_energy": energy, "fb_ngb_mass": ngb_mass},
+        p, T.ti_lo, T.ti_hi, feedback.delta_u)
+    # direct injection into the drifted and the full energy
+    # (hydro_set_physical_internal_energy + _drifted, feedback_iact.h)
+    gas = {**gas, "u_full": gas["u_full"] + du_add,
+           "u": gas["u"] + du_add}
+    stars = {**stars, "fb_done": torch.where(fire, 1.0, stars["fb_done"])}
+    return gas, stars, nev > 0
+
+
+def _enrich(grid, p, enrichment, gas, stars, T, stars_act):
+    """Stellar enrichment: AGB + SNII mass return and SNIa metals of the
+    stars dying this step (feedback/EAGLE/enrichment.h evolve_*), shared
+    kernel-weighted over the gas.  Returns (gas, stars, m_enriched)."""
+    _, tb_s, act_s = stars_act
+    dt_s = T.dt_alpha[tb_s]
+    age2 = T.birth_time - stars["birth_time"]
+    age1 = torch.clamp_min(age2 - dt_s, 0.0)
+    live = act_s & (stars["birth_time"] > 0) & (age2 > 0)
+    dm_ej, dmZ_ej, delem_ej = enrichment.ejecta(
+        stars["m_init"], stars["Z"], stars["elem_frac"], age1, age2)
+    # never eject more than the star has (evolve_* cap), nor without gas
+    # neighbours to receive it; the weights only matter to live stars
+    norm = stencil.star_kernel_weight_loop(grid, stars, gas, p, sel=live)
+    can = live & (norm > 0)
+    cap = torch.minimum(dm_ej, 0.9 * stars["m"])
+    scale = torch.where(dm_ej > 0, cap / torch.clamp_min(dm_ej, 1e-30), 0.0)
+    dm_ej = torch.where(can, cap, 0.0)
+    dmZ_ej = torch.where(can, dmZ_ej * scale, 0.0)
+    delem_ej = torch.where(can[..., None], delem_ej * scale[..., None], 0.0)
+    rec = stencil.enrichment_apply_loop(
+        grid, gas, {**stars, "ej_m": dm_ej, "ej_mZ": dmZ_ej,
+                    "ej_elem": delem_ej, "ej_norm": norm}, p)
+    m_old = gas["m"]
+    m_new = m_old + rec["dm"]
+    m_inv = 1.0 / torch.clamp_min(m_new, 1e-30)
+    got = rec["dm"] > 0
+    v_new = (m_old[..., None] * gas["v_full"] + rec["dp"]) * m_inv[..., None]
+    gas = {**gas, "m": m_new,
+           "v_full": torch.where(got[..., None], v_new, gas["v_full"]),
+           "Z": (gas["Z"] * m_old + rec["dmZ"]) * m_inv,
+           "elem_frac": (gas["elem_frac"] * m_old[..., None]
+                         + rec["delem"]) * m_inv[..., None]}
+    stars = {**stars, "m": stars["m"] - dm_ej}
+    return gas, stars, torch.sum(rec["dm"])
+
+
 def multi_step(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
                gravity_fn: Optional[Callable], eps_soft,
                cosmo: CosmoFactors, state: Dict[str, Dict], T: StepTables,
-               cooling_fn: Optional[Callable] = None):
-    """One engine step over the {'gas', 'dm'} species.  Returns
+               cooling_fn: Optional[Callable] = None, sf=None,
+               feedback: Optional[EagleThermalFeedback] = None,
+               enrichment: Optional[EagleEnrichment] = None):
+    """One engine step over the {'gas', 'dm', 'stars'} species.  ``sf``
+    is the (EagleStarFormation, entropy floor or None) pair.  Returns
     (new_state, diagnostics)."""
-    gas, dm = state.get("gas"), state.get("dm")
+    gas, dm, stars = (state.get(n) for n in SPECIES)
     dev = next(iter(state.values()))["mask"].device
-    zero = torch.zeros((), dtype=I32, device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    zf = torch.zeros((), device=dev)
     n_overflow, n_active, too_small_n, n_woken = zero, zero, zero, zero
+    n_converted, n_lost, n_heated = zero, zero, zero
+    m_enriched = zf
     n_ghost_iter = 0
-    h_max_active = torch.zeros((), device=dev)
+    h_max_active = zf
     acts = {}
+    Z_smooth = None
+    heated = None
 
     # --- drift + rebucket + SPH loops (gas) ---------------------------------
     if gas is not None:
@@ -106,6 +264,11 @@ def multi_step(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
         mask_b, tb, active = _species_active(s, T)
         s, n_ghost_iter = _gas_loops(grid, p, cfg, cosmo, s, active,
                                      T.dt_alpha)
+        # smoothed chemistry (chemistry/EAGLE/chemistry_iact.h): cooling
+        # and star formation take the kernel-smoothed metallicity
+        if "Z" in s and "elem_frac" in s and (cooling_fn is not None
+                                              or sf is not None):
+            Z_smooth, _ = hydro_flat.chemistry_smooth_loop(grid, s, p)
         gas = s
         acts["gas"] = (mask_b, tb, active)
         n_active = n_active + torch.sum(active)
@@ -121,33 +284,114 @@ def multi_step(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
         acts["dm"] = _species_active(d, T)
         n_active = n_active + torch.sum(acts["dm"][2])
 
+    # --- drift + rebucket (stars) --------------------------------------------
+    if stars is not None:
+        d = {**stars, "off": stars["off"] + stars["v_full"] * T.dt_drift
+             * stars["mask"][..., None]}
+        # feedback pairs reach out to gamma h_star: the rebucket trigger
+        # protects that range too
+        reach_s = _f32(cfg.p2p_reach)
+        if feedback is not None:
+            reach_s = torch.clamp_min(
+                torch.amax(torch.where(d["mask"] > 0, d["h"], 0.0))
+                * _f32(p.kernel.gamma), reach_s)
+        d, nov = _rebucket_phase(grid, cfg, d, T, reach_s)
+        n_overflow = n_overflow + nov
+        stars = d
+        acts["stars"] = _species_active(d, T)
+        n_active = n_active + torch.sum(acts["stars"][2])
+
+    # --- the stars' ghost (runner_ghost.c:72) before any consumer ------------
+    if (cfg.species_ghost_iterations > 0 and gas is not None
+            and stars is not None
+            and (feedback is not None or enrichment is not None)):
+        act_s = acts["stars"][2]
+        h_s, _, _ = species_ghost.species_h_iterate(
+            grid, stars, gas, p, act_s,
+            max_iter=cfg.species_ghost_iterations)
+        stars = {**stars, "h": h_s}
+        h_max_active = torch.maximum(
+            h_max_active, torch.amax(torch.where(act_s, h_s, 0.0)))
+
     # --- joint gravity (every species sources, every species receives) ------
     if gravity_fn is not None:
-        pool = {n: sp for n, sp in (("gas", gas), ("dm", dm))
+        pool = {n: sp for n, sp in zip(SPECIES, (gas, dm, stars))
                 if sp is not None}
         pool = _apply_gravity(gravity_fn, pool,
                               {n: a[2] for n, a in acts.items()})
-        gas, dm = pool.get("gas"), pool.get("dm")
+        gas, dm, stars = (pool.get(n) for n in SPECIES)
+
+    # --- stellar feedback and enrichment (stars -> gas) ----------------------
+    if feedback is not None and stars is not None and gas is not None:
+        gas, stars, heated = _feedback(grid, p, feedback, gas, stars, T,
+                                       acts["stars"][2])
+        n_heated = torch.sum(heated)
+    if (enrichment is not None and stars is not None and gas is not None
+            and "Z" in gas and "elem_frac" in gas):
+        gas, stars, m_enriched = _enrich(grid, p, enrichment, gas, stars, T,
+                                         acts["stars"])
 
     # --- per-species cooling + KDK --------------------------------------------
     bin_counts = torch.zeros(NBINS + 1, dtype=torch.int64, device=dev)
     if gas is not None:
         mask_b, tb, active = acts["gas"]
-        gas = _apply_cooling(cooling_fn, cosmo, gas, T, active, tb)
+        if cooling_fn is not None:
+            gas_ch = gas if Z_smooth is None else {**gas, "Z": Z_smooth}
+            upd = cooling_fn(gas_ch, cosmo, T.dt_therm_full[tb])
+            gas = {**gas, **{k: torch.where(active, v, gas[k])
+                             for k, v in upd.items()}}
         gas, too_small, woken = _gas_kdk(grid, p, cfg, cosmo, gas, T,
                                          active, mask_b, tb)
         too_small_n = too_small_n + torch.sum(too_small)
         n_woken = n_woken + woken
+
+        # feedback sync: heated inactive particles join the current step
+        # (runner_do_sync, runner_time_integration.c:1478)
+        if heated is not None:
+            sync = heated & mask_b & ~active & (gas["time_bin"] > 0)
+            new_bin_w = torch.clamp_max(_tb_index(gas["time_bin"]).to(I32),
+                                        T.max_active_bin)
+            gas = apply_wake(p, cosmo, gas, T, sync, new_bin_w)
+            n_woken = n_woken + torch.sum(sync)
+
+        # star formation (runner_do_star_formation, runner_others.c)
+        if sf is not None and stars is not None:
+            sf_model, sf_floor = sf
+            dt_star = T.dt_alpha[tb]
+            gas_ch = gas if Z_smooth is None else {**gas, "Z": Z_smooth}
+            conv, sfr = sf_model.conversion_mask(
+                gas_ch, cosmo, dt_star, T.ti_lo, T.ti_hi, sf_floor, active)
+            # sticky per-particle SFR (star_formation_struct.h)
+            if "sfr" in gas:
+                gas = {**gas, "sfr": torch.where(active, sfr, gas["sfr"])
+                       * gas["mask"]}
+            gas, stars, n_converted, n_lost = _convert_gas_to_stars(
+                grid, gas, stars, conv, T)
+            n_overflow = n_overflow + n_lost
         bin_counts = bin_counts + _bin_counts(gas["mask"] > 0,
                                               gas["time_bin"])
-    if dm is not None:
-        mask_b, tb, active = acts["dm"]
-        dm, too_small = _dm_kdk(cfg, _eps_of(eps_soft, "dm"), dm, T,
+    for name, sp in (("dm", dm), ("stars", stars)):
+        if sp is None:
+            continue
+        _, tb, active = acts[name]
+        sp, too_small = _dm_kdk(cfg, _eps_of(eps_soft, name), sp, T,
                                 active, tb)
         too_small_n = too_small_n + torch.sum(too_small)
-        bin_counts = bin_counts + _bin_counts(mask_b, dm["time_bin"])
+        # the stars' bins include this step's newborns
+        bin_counts = bin_counts + _bin_counts(sp["mask"] > 0,
+                                              sp["time_bin"])
+        if name == "dm":
+            dm = sp
+        else:
+            stars = sp
 
-    out = {n: sp for n, sp in (("gas", gas), ("dm", dm)) if sp is not None}
+    if sf is not None and bool(n_converted > 0):
+        # the flat kernel's columns: the gas front-packed, the stars
+        # z-sorted (after the KDK: the step's activity masks are by slot)
+        gas = compact_slots(gas)
+        stars = zsort_slots(stars)
+    out = {n: sp for n, sp in zip(SPECIES, (gas, dm, stars))
+           if sp is not None}
     diag = {
         "bin_counts": bin_counts,
         "n_overflow": n_overflow,
@@ -156,6 +400,10 @@ def multi_step(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
         "n_active": n_active,
         "n_woken": n_woken,
         "h_max_active": h_max_active,
+        "n_heated": n_heated,
+        "n_converted": n_converted,
+        "n_lost": n_lost,
+        "m_enriched": m_enriched,
         # fullest live cell over every species (occupancy re-grid trigger)
         "k_max_live": torch.amax(torch.stack([
             torch.amax(torch.sum(sp["mask"] > 0, dim=1))
@@ -167,20 +415,28 @@ def multi_step(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
 def multi_init(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
                gravity_fn: Optional[Callable], eps_soft,
                cosmo: CosmoFactors, state: Dict[str, Dict], T: StepTables):
-    """engine_init_particles for every species: density/ghost + forces +
-    initial bins + the first half-kick (engine.c:1893)."""
-    gas, dm = state.get("gas"), state.get("dm")
+    """engine_init_particles for every species: density/ghost, the stars'
+    ghost, forces, initial bins and the first half-kick
+    (engine.c:1893)."""
+    gas, dm, stars = (state.get(n) for n in SPECIES)
     dev = next(iter(state.values()))["mask"].device
     n_ghost_iter = 0
     if gas is not None:
         gas, n_ghost_iter = _gas_loops(grid, p, cfg, cosmo, gas,
                                        gas["mask"] > 0, T.dt_alpha * 0.0)
+    # the stars' h starts converged (the load-time h is only a guess)
+    if cfg.species_ghost_iterations > 0 and gas is not None \
+            and stars is not None:
+        h_s, _, _ = species_ghost.species_h_iterate(
+            grid, stars, gas, p, stars["mask"] > 0,
+            max_iter=cfg.species_ghost_iterations)
+        stars = {**stars, "h": h_s}
     if gravity_fn is not None:
-        pool = {n: sp for n, sp in (("gas", gas), ("dm", dm))
+        pool = {n: sp for n, sp in zip(SPECIES, (gas, dm, stars))
                 if sp is not None}
         pool = _apply_gravity(gravity_fn, pool,
                               {n: sp["mask"] > 0 for n, sp in pool.items()})
-        gas, dm = pool.get("gas"), pool.get("dm")
+        gas, dm, stars = (pool.get(n) for n in SPECIES)
 
     bin_counts = torch.zeros(NBINS + 1, dtype=torch.int64, device=dev)
     too_small_n = torch.zeros((), dtype=torch.int64, device=dev)
@@ -210,25 +466,31 @@ def multi_init(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
         ke = sphenix.kick_extra(p, s, cosmo, dt_k1 * s["mask"])
         gas = {**s, "u_full": ke["u_full"], "u_dt": ke["u_dt"]}
         bin_counts = bin_counts + _bin_counts(mask_b, gas["time_bin"])
-    if dm is not None:
-        mask_b = dm["mask"] > 0
+    for name, sp in (("dm", dm), ("stars", stars)):
+        if sp is None:
+            continue
+        mask_b = sp["mask"] > 0
         new_dt = torch.sqrt(
-            _f32(2.0 * cfg.eta_grav * _eps_of(eps_soft, "dm"))
-            / torch.clamp_min(_norm(dm["a_grav"] + dm["a_grav_mesh"]),
+            _f32(2.0 * cfg.eta_grav * _eps_of(eps_soft, name))
+            / torch.clamp_min(_norm(sp["a_grav"] + sp["a_grav_mesh"]),
                               1e-30))
         new_dt = torch.clamp_max(new_dt, _f32(cfg.dt_max))
         too_small_n = too_small_n + torch.sum(mask_b
                                               & (new_dt < cfg.dt_min))
         new_bin = torch.clamp(bin_from_dt(new_dt, T.time_base_inv), 1, NBINS)
         new_bin = torch.clamp_max(new_bin, T.max_bin)
-        d = {**dm, "time_bin": torch.where(mask_b, new_bin, 0)}
+        d = {**sp, "time_bin": torch.where(mask_b, new_bin, 0)}
         dt_k1 = T.dt_kick1[_tb_index(d["time_bin"])]
         d["v_full"] = d["v_full"] + d["a_grav"] * dt_k1[..., None] \
             * d["mask"][..., None]
-        dm = d
-        bin_counts = bin_counts + _bin_counts(mask_b, dm["time_bin"])
+        bin_counts = bin_counts + _bin_counts(mask_b, d["time_bin"])
+        if name == "dm":
+            dm = d
+        else:
+            stars = d
 
-    out = {n: sp for n, sp in (("gas", gas), ("dm", dm)) if sp is not None}
+    out = {n: sp for n, sp in zip(SPECIES, (gas, dm, stars))
+           if sp is not None}
     diag = {
         "bin_counts": bin_counts,
         "n_overflow": torch.zeros((), dtype=I32, device=dev),
@@ -277,12 +539,22 @@ def _mesh_open_multi(state: Dict[str, Dict], dt: float):
     return new
 
 
+def _refuse_model(name: str, obj, cls):
+    if obj is not None and not isinstance(obj, cls):
+        raise NotImplementedError(
+            f"MultiEngine: {name} {type(obj).__name__} not ported; the port "
+            f"runs {cls.__name__} only (ROADMAP.md, queue 1 item 9)")
+
+
 class MultiEngine(Engine):
-    """Gas + DM engine (the SmallCosmoVolume configuration) on the flat
-    column grid.  ``gravity_fn`` and ``mesh_fn`` take the species list in
-    ``SPECIES`` order (``GravitySolver.short_range_accelerations`` and
+    """Gas + DM + stars engine (the SmallCosmoVolume and EAGLE volume
+    configurations) on the flat column grid.  ``gravity_fn`` and
+    ``mesh_fn`` take the species list in ``SPECIES`` order
+    (``GravitySolver.short_range_accelerations`` and
     ``mesh_accelerations``); ``eps_soft`` is a float or the (baryon, dm)
-    pair of the timestep softenings."""
+    pair of the timestep softenings.  ``star_formation``,
+    ``entropy_floor``, ``feedback`` and ``enrichment`` are the EAGLE
+    models of ``subgrid``."""
 
     def __init__(self, grid: CellGrid, sph: SPHENIXParams,
                  cfg: EngineConfig, time_begin: float, time_end: float, *,
@@ -290,15 +562,24 @@ class MultiEngine(Engine):
                  eps_soft=1e-3, cosmology=None,
                  cooling_fn: Optional[Callable] = None,
                  mesh_fn: Optional[Callable] = None,
-                 mesh_dt_scale: float = 0.0, **refused):
-        bad = sorted(k for k, v in refused.items() if v is not None)
+                 mesh_dt_scale: float = 0.0,
+                 star_formation: Optional[EagleStarFormation] = None,
+                 entropy_floor=None,
+                 feedback: Optional[EagleThermalFeedback] = None,
+                 enrichment: Optional[EagleEnrichment] = None, **refused):
         unknown = sorted(set(refused) - set(_REFUSED))
         if unknown:
             raise TypeError(f"MultiEngine: unexpected arguments {unknown}")
+        bad = [k for k in _REFUSED if refused.get(k) is not None]
         if bad:
             raise NotImplementedError(
                 f"MultiEngine: {', '.join(bad)} not ported; the port runs "
-                "gas and dark matter only (ROADMAP.md, queue 1 item 9)")
+                "gas, dark matter and stars with the EAGLE cooling, "
+                "star-formation, feedback and enrichment models "
+                "(ROADMAP.md, queue 1 item 9)")
+        _refuse_model("star_formation", star_formation, EagleStarFormation)
+        _refuse_model("feedback", feedback, EagleThermalFeedback)
+        _refuse_model("enrichment", enrichment, EagleEnrichment)
         if cfg.backend != "flat":
             raise NotImplementedError(
                 f"MultiEngine: backend {cfg.backend!r} not ported; the "
@@ -311,15 +592,24 @@ class MultiEngine(Engine):
         self.eps_soft = (tuple(float(e) for e in eps_soft)
                          if isinstance(eps_soft, (tuple, list))
                          else float(eps_soft))
+        self.sf = ((star_formation, entropy_floor)
+                   if star_formation is not None else None)
+        self.feedback = feedback
+        self.enrichment = enrichment
         self.state = {}
         self.n_particles = 0
 
     # --- loading ---------------------------------------------------------------
-    def load_gas(self, pos, m, v, u, h, pid=None):
+    def load_gas(self, pos, m, v, u, h, pid=None, Z=None, elem_frac=None):
+        """Bucket the gas (z-sorted columns), with its chemistry carriers
+        when given and the sticky SFR when star formation is on."""
         gas = Engine(self.grid, self.sph, self.cfg, 0.0, 1.0,
                      device=self.device)
-        gas.load_particles(pos, m, v, u, h, pid=pid)
+        gas.load_particles(pos, m, v, u, h, pid=pid, Z=Z,
+                           elem_frac=elem_frac)
         self.state["gas"] = gas.state
+        if self.sf is not None:
+            self.state["gas"]["sfr"] = torch.zeros_like(gas.state["m"])
         self.n_particles += len(pos)
 
     def load_dm(self, pos, m, v, pid=None):
@@ -327,6 +617,65 @@ class MultiEngine(Engine):
         self.state["dm"] = _dm_tiles(self.grid, pos, m, v, pid,
                                      self.device, zsort=True)
         self.n_particles += len(pos)
+
+    def _star_state(self, mask, off, out, C: int, K_s: int):
+        dev = self.device
+
+        def z(*tail):
+            return torch.zeros((C, K_s) + tail, dtype=F32, device=dev)
+
+        ef = z(N_ELEMENTS)
+        ef[..., 0], ef[..., 1] = 0.752, 0.248
+        return {"mask": mask, "off": off, **out,
+                "a_grav": z(3), "pot": z(), "a_grav_mesh": z(3),
+                "pot_mesh": z(),
+                "time_bin": torch.zeros((C, K_s), dtype=I32, device=dev),
+                "birth_time": z(), "birth_density": z(), "fb_done": z(),
+                "Z": z(), "elem_frac": ef,
+                "drift_accum": torch.zeros((), dtype=F32, device=dev)}
+
+    def alloc_stars(self, extra_per_cell: int = STAR_EXTRA_SLOTS):
+        """Empty star slots for star formation, ``extra_per_cell`` a cell
+        (space_extra_sparts, space.h:53)."""
+        C, K_s = self.grid.C, int(extra_per_cell)
+        out = {"pid": torch.full((C, K_s), -1, dtype=I32, device=self.device),
+               "m": torch.zeros((C, K_s), dtype=F32, device=self.device),
+               "v_full": torch.zeros((C, K_s, 3), dtype=F32,
+                                     device=self.device),
+               "h": torch.zeros((C, K_s), dtype=F32, device=self.device)}
+        out["m_init"] = out["m"].clone()
+        self.state["stars"] = self._star_state(
+            torch.zeros((C, K_s), dtype=F32, device=self.device),
+            torch.zeros((C, K_s, 3), dtype=F32, device=self.device),
+            out, C, K_s)
+
+    def load_stars(self, pos, m, v, h=None, pid=None,
+                   extra_per_cell: int = STAR_EXTRA_SLOTS):
+        """Bucket existing star particles (z-sorted columns, the grid's
+        capacity) plus ``extra_per_cell`` free slots for star formation.
+        They carry no birth time: they do not fire or enrich."""
+        n = len(pos)
+        if pid is None:
+            pid = np.arange(n, dtype=np.int32)
+        if h is None:
+            h = np.full(n, min(self.grid.edge) / 4, np.float32)
+        fields = {"pid": np.asarray(pid, np.int32),
+                  "m": np.asarray(m, np.float32),
+                  "v_full": np.asarray(v, np.float32),
+                  "h": np.asarray(h, np.float32)}
+        out, mask, off, n_over = bucket_fields(
+            self.grid, np.asarray(pos), fields, device=self.device,
+            zsort=True)
+        if int(n_over) != 0:
+            raise RuntimeError(f"{int(n_over)} star particles overflow K")
+        extra = int(extra_per_cell)
+        out = {k: _pad_slots(v, extra, -1 if k == "pid" else 0)
+               for k, v in out.items()}
+        mask, off = _pad_slots(mask, extra), _pad_slots(off, extra)
+        out["m_init"] = out["m"].clone()
+        self.state["stars"] = self._star_state(mask, off, out, self.grid.C,
+                                               mask.shape[1])
+        self.n_particles += n
 
     # --- split PM-mesh timestep over every species -----------------------------
     def _mesh_boundary(self):
@@ -367,7 +716,8 @@ class MultiEngine(Engine):
         self.state, diag = multi_step(self.grid, self.sph, self.cfg,
                                       self.gravity_fn, self.eps_soft,
                                       self.cosmo, self.state, T,
-                                      self.cooling_fn)
+                                      self.cooling_fn, self.sf,
+                                      self.feedback, self.enrichment)
         self._post_step(diag)
         self.step_count += 1
         if self.mesh_fn is not None and t.ti_current >= self.ti_mesh_end:
@@ -377,18 +727,21 @@ class MultiEngine(Engine):
     # --- automatic re-gridding over every species ------------------------------
     def _grid_reach(self, h_reach: float = 0.0) -> float:
         reach = float(self.cfg.p2p_reach)
-        gas = self.state.get("gas")
-        if gas is not None:
-            mask = gas["mask"] > 0
+        for name in ("gas", "stars"):
+            sp = self.state.get(name)
+            if sp is None:
+                continue
+            mask = sp["mask"] > 0
             if bool(mask.any()):
-                reach = max(reach, float(gas["h"][mask].max())
+                reach = max(reach, float(sp["h"][mask].max())
                             * self.sph.kernel.gamma * 1.05)
         return max(reach, h_reach * 1.05)
 
     def regrid(self, h_reach: float = 0.0):
         """space_regrid over every species: one new grid sized for the
-        union of the particles, each species re-bucketed onto it, gravity
-        rebound from ``solver_builder``."""
+        union of the particles, each species re-bucketed onto it (the
+        stars keep their free slots when stars form), gravity rebound
+        from ``solver_builder``."""
         gravity = self.gravity_fn is not None or self.mesh_fn is not None
         if gravity and self.solver_builder is None:
             raise RuntimeError(
@@ -403,8 +756,11 @@ class MultiEngine(Engine):
                      for n, sp in self.state.items()}
         new_grid = self._build_grid(
             np.concatenate([pos for pos, _ in extracted.values()]), reach)
-        state = {n: self._rebucket_species(new_grid, pos, fields)
-                 for n, (pos, fields) in extracted.items()}
+        state = {n: self._rebucket_species(
+            new_grid, pos, fields,
+            extra_slots=(STAR_EXTRA_SLOTS if n == "stars"
+                         and self.sf is not None else 0))
+            for n, (pos, fields) in extracted.items()}
         if gravity:
             self._bind_solver(self.solver_builder(new_grid))
         self.state, self.grid = state, new_grid

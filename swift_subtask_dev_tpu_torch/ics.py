@@ -131,3 +131,30 @@ def small_cosmo_volume_ic(n: int = 16, L: float = 25.0, z: float = 9.0,
                             np.float32),
                "pid": np.arange(N, 2 * N, dtype=np.int64)},
     }
+
+
+# ---------------------------------------------------------------------------
+# EAGLE volume (examples/eagle_volume/make_ics.py, as arrays)
+# ---------------------------------------------------------------------------
+
+def eagle_volume_ic(n: int = 16, L: float = 25.0, z: float = 9.0,
+                    star_frac: float = 0.02, seed: int = 42):
+    """The EAGLE volume's gas + DM + stars initial conditions
+    (``examples/eagle_volume/make_ics.py`` without its HDF5 file and
+    without the seed black hole): the SmallCosmoVolume arrays, with
+    max(1, int(star_frac n^3)) gas sites, drawn by
+    ``default_rng(seed).choice`` without replacement, carved out as star
+    particles (id = gas id + 2 n^3, the gas's mass and velocity).
+    Returns the dict of ``small_cosmo_volume_ic`` with a "stars" entry."""
+    ic = small_cosmo_volume_ic(n=n, L=L, z=z)
+    gas = ic["gas"]
+    N = len(gas["pos"])
+    n_star = max(1, int(star_frac * N))
+    star_idx = np.random.default_rng(seed).choice(N, n_star, replace=False)
+    keep = np.ones(N, bool)
+    keep[star_idx] = False
+    ic["stars"] = {"pos": gas["pos"][star_idx], "v": gas["v"][star_idx],
+                   "m": gas["m"][star_idx],
+                   "pid": gas["pid"][star_idx] + 2 * N}
+    ic["gas"] = {k: v[keep] for k, v in gas.items()}
+    return ic

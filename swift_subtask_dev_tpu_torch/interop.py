@@ -28,6 +28,8 @@ def state_from_reference(state: Dict[str, np.ndarray],
 def multi_state_from_reference(state: Dict[str, Dict[str, np.ndarray]],
                                device) -> Dict[str, Dict[str, torch.Tensor]]:
     """A reference ``MultiEngine.state`` ({species: state}) carried across
-    species by species, as ``state_from_reference``."""
+    species by species, as ``state_from_reference``: every field of each
+    species, the stars' (birth_time, birth_density, fb_done, m_init, Z,
+    elem_frac (C, K, 9)) and the gas's chemistry carriers included."""
     return {name: state_from_reference(sp, device)
             for name, sp in state.items()}

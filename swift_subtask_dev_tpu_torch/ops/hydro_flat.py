@@ -33,10 +33,11 @@ from ..grid.cellgrid import CellGrid
 from ..models.sph import sphenix
 from ..models.sph.kernels import CUBIC_SPLINE
 from ..models.sph.sphenix import CosmoFactors, SPHENIXParams
+from ..subgrid.chemistry import N_ELEMENTS
 from . import p2p_gravity as pg
 from . import pair_flat, pair_packed, pair_ring
 from .pair_flat import PairBody, PairPass
-from .stencil import NBIN_SENTINEL
+from .stencil import NBIN_SENTINEL, chemistry_smooth_finish
 
 F32 = torch.float32
 
@@ -50,6 +51,8 @@ FORCE_FIELDS = _COMMON + ("v0", "v1", "v2", "h", "m", "u", "rho", "P", "cs",
 FORCE_GRAVITY_FIELDS = FORCE_FIELDS + ("gm",)
 P2P_FIELDS = _COMMON + ("h", "m")
 TIMEBIN_FIELDS = _COMMON + ("h", "tb", "act")
+CHEM_FIELDS = _COMMON + ("h", "hinv", "m", "Z") + tuple(
+    f"e{k}" for k in range(N_ELEMENTS))
 
 ENGINES = ("flat", "packed", "ring")
 
@@ -303,6 +306,31 @@ def timebin_pass(s: Dict, p: SPHENIXParams) -> PairPass:
                     sym_range=True)
 
 
+def chem_smooth_pass(s: Dict, p: SPHENIXParams) -> PairPass:
+    """Chemistry smoothing's neighbour sums (chemistry_iact.h): m_j
+    W(r, h_i) times Z_j and each element fraction, over the density
+    body's pairs (the reference's ``u2 < gamma^2`` test)."""
+    fields = _common_fields(s)
+    fields["h"] = _san(s, "h")
+    fields["hinv"] = 1.0 / fields["h"]
+    fields["m"] = s["m"]
+    fields["Z"] = s["Z"]
+    for k in range(N_ELEMENTS):
+        fields[f"e{k}"] = s["elem_frac"][..., k]
+    gamma2 = float(p.kernel.gamma2)
+
+    def fn(sf, nf, dx, r2):
+        u2 = r2 * sf("hinv") * sf("hinv")
+        w, _ = p.kernel.deval(torch.sqrt(u2))
+        mw = nf("m") * w
+        return u2 < gamma2, [mw * nf("Z")] + [
+            mw * nf(f"e{k}") for k in range(N_ELEMENTS)], []
+
+    body = PairBody("chem_smooth", CHEM_FIELDS, 1 + N_ELEMENTS, 0,
+                    _kernel_params(p), fn)
+    return PairPass(body, fields, range_scale=float(p.kernel.gamma))
+
+
 # ---------------------------------------------------------------------------
 # Loops (the reference's hydro_pallas contracts, both engines)
 # ---------------------------------------------------------------------------
@@ -406,6 +434,18 @@ def p2p_gravity_loop(grid: CellGrid, s_i: Dict, species_j: Sequence[Dict],
         pot = pot + sums[3][:, :W_i]
     m = s_i["mask"]
     return (torch.stack([acc0 * m, acc1 * m, acc2 * m], -1), pot * m)
+
+
+def chemistry_smooth_loop(grid: CellGrid, s: Dict, p: SPHENIXParams):
+    """Kernel-smoothed metal mass fractions on the flat engine (the
+    reference's XLA ``ops/stencil.py:597 chemistry_smooth_loop``, its
+    plain version ``stencil.chemistry_smooth_loop``): the neighbour sums
+    from the chemistry body, then the self term and h^-3 / rho.  Needs
+    mask/off/m/h/rho/Z/elem_frac.  Returns (Z_smooth (C, W),
+    elem_frac_smooth (C, W, 9))."""
+    sums, _ = pair_flat.pair_apply(grid, chem_smooth_pass(s, p))
+    return chemistry_smooth_finish(s, p, sums[0],
+                                   torch.stack(sums[1:], -1))
 
 
 def timebin_loop(grid: CellGrid, s: Dict, p: SPHENIXParams) -> torch.Tensor:

@@ -473,6 +473,7 @@ REACH2: Dict[str, Callable] = {
     "timebin": lambda p, sf, nf: (0.0, torch.where(
         (nf("act") > 0) & (nf("tb") > 0), _gh2(_f32(p[0]), nf("h")),
         -1.0)),
+    "chem_smooth": lambda p, sf, nf: (_gh2(_f32(p[0]), sf("h")), 0.0),
     "probe_a00": lambda p, sf, nf: (float("inf"), 0.0),
     **{name: (lambda p, sf, nf: (_f32(0.0036), 0.0))
        for name in ("probe_a", "probe_b", "probe_c", "probe_d", "probe_e")},
@@ -620,7 +621,7 @@ def walk_summary(stats: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 BODY_NAMES = ("density", "gradient", "force", "force_gravity", "p2p_gravity",
-              "timebin")
+              "timebin", "chem_smooth")
 # the cost probe's synthetic bodies (csrc/probe_bodies.cuh,
 # probes/probe_kernel.py)
 PROBE_BODY_NAMES = ("probe_a00", "probe_a", "probe_b", "probe_c", "probe_d",

@@ -1,1 +1,3 @@
-"""Subgrid physics of the port: constant-Lambda cooling."""
+"""Subgrid physics of the port: constant-Lambda cooling and the EAGLE
+models (table cooling, entropy floor, chemistry, star formation, thermal
+feedback, enrichment)."""

@@ -71,6 +71,17 @@ class Timeline:
             mask[b] = (ti % dti) == 0
         return mask
 
+    def max_active_bin(self, ti: int | None = None) -> int:
+        """Largest bin active at ti (reference get_max_active_bin)."""
+        ti = self.ti_current if ti is None else ti
+        if ti == 0:
+            return NUM_TIME_BINS
+        best = 0
+        for b in range(1, NUM_TIME_BINS + 1):
+            if ti % (1 << (b + 1)) == 0:
+                best = b
+        return best
+
     def ti_end_min_from_bins(self, bin_counts: np.ndarray,
                              ti: int | None = None) -> int:
         """Exact next ti_end over all particles, from per-bin occupancy.

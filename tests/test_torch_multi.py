@@ -192,7 +192,7 @@ def test_multi_engine_refuses_what_is_not_ported():
     cfg = port_engine.EngineConfig()
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         port_multi.MultiEngine(grid, SPHENIXParams(), cfg, 0.0, 1.0,
-                               device=CPU, star_formation=object())
+                               device=CPU, bh_model=object())
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         port_multi.MultiEngine(
             CellGrid((1.0, 1.0, 1.0), (3, 3, 3), 8), SPHENIXParams(),

@@ -72,6 +72,10 @@ def _passes(s):
                                                        **GRAV),
         "p2p_gravity": hydro_flat.p2p_gravity_pass(s, **GRAV),
         "timebin": hydro_flat.timebin_pass(s, p),
+        "chem_smooth": hydro_flat.chem_smooth_pass(
+            {**s, "Z": 0.01 * s["u"], "elem_frac": 0.1 * torch.stack(
+                [s["balsara"], s["alpha_visc"], s["alpha_diff"]] * 3, -1)},
+            p),
     }
 
 
@@ -101,7 +105,8 @@ def _check_walk(grid, pp, active_i=None):
 
 @pytest.mark.parametrize("active", [False, True])
 @pytest.mark.parametrize("name", ["density", "gradient", "force",
-                                  "force_gravity", "p2p_gravity", "timebin"])
+                                  "force_gravity", "p2p_gravity", "timebin",
+                                  "chem_smooth"])
 def test_walk_filter_keeps_every_accepted_pair(state, name, active):
     grid, s = state
     pp = _passes(s)[name]

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port, on one GPU.
 
-    python3 tools/torch_profile_step.py [--path main|sedov-a|sedov-c]
-        [--out PATH]
+    python3 tools/torch_profile_step.py
+        [--path main|sedov-a|sedov-c|cosmo|dmo|eagle] [--out PATH]
 
 ``--path main`` (the default) runs bench.py's default geometry (2*80^3 =
 1,024,000 particles, SPHENIX + P3M on the flat column grid, mesh_N =
@@ -45,17 +45,22 @@ the pair engine's ``prepare`` and kernel launch), ms per step.
 
 ``--path cosmo`` runs chip_smoke.py's SmallCosmoVolume (the port's
 example: 2*64^3 = 524,288 gas + DM particles in 100 Mpc/h, comoving,
-split mesh, constant-Lambda cooling, the multi engine) and ``--path dmo``
-bench.py's BENCH_MODE=dmo geometry (1,024,000 particles, mesh_N = 192,
-DMEngine): init_particles() and a warm-up window, then (1) steady:
-three windows, ms per step; (2) trace over a window, as above, with
-K1's one-species and cross-species P2P launches per step; (3) phases
-over a window (ghost, density, gradient, force, P2P gravity loops,
-rebucket check, cooling, the gas and DM kicks, the mesh update; inside
-them ``pair_flat.prepare`` and the kernel launch), ms per step.  A DMO
-window is 8 steps of one engine; the volume reaches a = 1 in ~13 steps,
-so each of its windows is a whole run() of a fresh engine after its
-init_particles().
+split mesh, constant-Lambda cooling, the multi engine), ``--path eagle``
+its EAGLE volume (the port's example: 256,902 gas, 262,144 DM and 5,242
+stars in 25 Mpc, EAGLE cooling, chemistry, star formation, feedback and
+enrichment, the limiter) and ``--path dmo`` bench.py's BENCH_MODE=dmo
+geometry (1,024,000 particles, mesh_N = 192, DMEngine):
+init_particles() and a warm-up window, then (1) steady: three windows,
+ms per step; (2) trace over a window, as above, with K1's one-species and
+cross-species P2P launches per step; (3) phases over a window (ghost,
+density, gradient, force, P2P gravity, timebin and chemistry loops,
+rebucket check, cooling, the gas and collisionless kicks, the mesh
+update; the EAGLE layers: the stars' ghost, feedback and enrichment with
+their star loops, star formation; inside them ``pair_flat.prepare`` and
+the kernel launch), ms per step.  A DMO window is 8 steps of one engine;
+the volumes reach a = 1 in ~13-14 steps, so each of their windows is a
+whole run() of a fresh engine after its init_particles() (the EAGLE
+volume's at most chip_smoke.py's EAGLE_STEPS).
 
 The last line printed is a JSON object with every number; it is also
 written to ``--out`` (default ``chiprun_out/torch_profile_step.json``,
@@ -76,6 +81,8 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
+from chip_smoke import SyncTimer  # noqa: E402
+
 from swift_subtask_dev_tpu_torch import engine as eng_mod  # noqa: E402
 from swift_subtask_dev_tpu_torch import engine_multi  # noqa: E402
 from swift_subtask_dev_tpu_torch.ops import (hydro_flat, pair_flat,  # noqa
@@ -83,12 +90,13 @@ from swift_subtask_dev_tpu_torch.ops import (hydro_flat, pair_flat,  # noqa
                                              stencil)
 
 N1, MESH_N = 80, 192      # bench.py's default geometry
-BODIES = ("Density", "Gradient", "ForceGravity", "Force", "P2PGravity")
+BODIES = ("Density", "Gradient", "ForceGravity", "Force", "P2PGravity",
+          "Timebin", "ChemSmooth")
 # the Sedov paths: (backend, limiter, pair engine module)
 SEDOV_PATHS = {"sedov-a": ("pallas", False, pair_packed),
                "sedov-c": ("pallas_ring", True, pair_ring)}
 SEDOV_N, SEDOV_T_END, SEDOV_T_WARM = 51, 0.05, 0.025
-GRAVITY_PATHS = ("cosmo", "dmo")
+GRAVITY_PATHS = ("cosmo", "dmo", "eagle")
 
 
 def pair_body(kernel_name: str):
@@ -182,37 +190,8 @@ def trace(eng, n_steps=4, run=None):
     }
 
 
-class PhaseTimer:
-    """Wraps module functions so each call is synchronised at both edges
-    and its wall time is summed per name."""
-
-    def __init__(self):
-        self.ms = {}
-        self.calls = {}
-        self._undo = []
-
-    def wrap(self, module, attr, name):
-        orig = getattr(module, attr)
-
-        def timed(*a, **kw):
-            t0 = sync_s()
-            out = orig(*a, **kw)
-            dt = sync_s() - t0
-            self.ms[name] = self.ms.get(name, 0.0) + 1e3 * dt
-            self.calls[name] = self.calls.get(name, 0) + 1
-            return out
-
-        setattr(module, attr, timed)
-        self._undo.append((module, attr, orig))
-
-    def restore(self):
-        for module, attr, orig in reversed(self._undo):
-            setattr(module, attr, orig)
-        self._undo.clear()
-
-
 def phases(eng, n_steps=8):
-    pt = PhaseTimer()
+    pt = SyncTimer()
     pt.wrap(eng_mod, "_ghost_density", "ghost")
     pt.wrap(hydro_flat, "density_loop", "density_loop")
     pt.wrap(hydro_flat, "gradient_loop", "gradient_loop")
@@ -274,7 +253,7 @@ def mesh(eng, reps=3):
 
 def sedov_phases(eng, module, n_steps=64):
     """ms per step of the Sedov step's phases over ``n_steps`` steps."""
-    pt = PhaseTimer()
+    pt = SyncTimer()
     pt.wrap(eng_mod, "_ghost_density", "ghost")
     pt.wrap(hydro_flat, "density_loop", "density_loop")
     pt.wrap(hydro_flat, "gradient_loop", "gradient_loop")
@@ -332,19 +311,34 @@ def sedov_profile(path, card, device):
 def gravity_phases(eng, n_steps):
     """ms per step of the multi-species or DM step's phases over
     ``n_steps`` steps (None: to the end of the run)."""
-    pt = PhaseTimer()
+    from swift_subtask_dev_tpu_torch.ops import species_ghost
+    from swift_subtask_dev_tpu_torch.subgrid.star_formation import (
+        EagleStarFormation)
+    pt = SyncTimer()
     pt.wrap(eng_mod, "_ghost_density", "ghost")
     for name in ("density_loop", "gradient_loop", "force_loop",
-                 "p2p_gravity_loop"):
+                 "p2p_gravity_loop", "timebin_loop",
+                 "chemistry_smooth_loop"):
         pt.wrap(hydro_flat, name, name)
     for mod in (eng_mod, engine_multi):
         # each module's own binding (engine_multi imports them by name)
         for name, label in (("_rebucket_phase", "rebucket_phase"),
                             ("_gas_kdk", "kick_timestep_gas"),
-                            ("_dm_kdk", "kick_timestep_dm"),
-                            ("_apply_cooling", "cooling")):
+                            ("_dm_kdk", "kick_timestep_dm_stars")):
             if hasattr(mod, name):
                 pt.wrap(mod, name, label)
+    if eng.cooling_fn is not None:
+        pt.wrap(eng, "cooling_fn", "cooling")
+    # the EAGLE layers: the stars' ghost, feedback and enrichment (their
+    # star loops inside them), star formation
+    pt.wrap(species_ghost, "species_h_iterate", "star_ghost")
+    for name in ("star_ngb_mass_loop", "feedback_apply_loop",
+                 "star_kernel_weight_loop", "enrichment_apply_loop"):
+        pt.wrap(stencil, name, name)
+    pt.wrap(engine_multi, "_feedback", "feedback")
+    pt.wrap(engine_multi, "_enrich", "enrichment")
+    pt.wrap(EagleStarFormation, "conversion_mask", "star_formation")
+    pt.wrap(engine_multi, "_convert_gas_to_stars", "star_formation")
     pt.wrap(engine_multi, "_mesh_update_multi", "mesh_update")
     pt.wrap(eng_mod, "_mesh_update", "mesh_update")
     pt.wrap(pair_flat, "prepare", "pair_prepare")
@@ -372,10 +366,11 @@ def gravity_profile(path, card, device, n_steps=8):
     pair_flat.LIBRARY.load()
 
     def build():
-        if path == "cosmo":
+        if path in ("cosmo", "eagle"):
             from swift_subtask_dev_tpu_torch.examples import (
-                small_cosmo_volume as scv)
-            e = scv.make_engine(device=device)[0]
+                eagle_volume, small_cosmo_volume)
+            ex = eagle_volume if path == "eagle" else small_cosmo_volume
+            e = ex.make_engine(device=device)[0]
             return e, sum(int((sp["mask"] > 0).sum())
                           for sp in e.state.values())
         return dmo_engine(device)
@@ -384,8 +379,9 @@ def gravity_profile(path, card, device, n_steps=8):
     res = {"card": card, "torch": torch.__version__,
            "cuda": torch.version.cuda, "path": path, "n_particles": n,
            "cdim": list(eng.grid.cdim), "K": eng.grid.K,
-           "chip_smoke_steps": (chip_smoke.COSMO_STEPS if path == "cosmo"
-                                else chip_smoke.DMO_STEPS)}
+           "chip_smoke_steps": {"cosmo": chip_smoke.COSMO_STEPS,
+                                "dmo": chip_smoke.DMO_STEPS,
+                                "eagle": chip_smoke.EAGLE_STEPS}[path]}
     torch.cuda.reset_peak_memory_stats()
     t0 = sync_s()
     eng.init_particles()
@@ -395,13 +391,15 @@ def gravity_profile(path, card, device, n_steps=8):
         seen["n_active"] += int(d["n_active"])
 
     def window(e, on_step=None):
-        """One window's steps (counted); the volume's: a fresh engine."""
-        if path == "cosmo":
+        """One window's steps (counted); a volume's: a fresh engine (the
+        EAGLE volume's at most chip_smoke's EAGLE_STEPS)."""
+        if path in ("cosmo", "eagle"):
             if e is None:
                 e = build()[0]
                 e.init_particles()
                 torch.cuda.synchronize()
-            return e, lambda: e.run(on_step=on_step)
+            most = res["chip_smoke_steps"] if path == "eagle" else 10 ** 9
+            return e, lambda: e.run(max_steps=most, on_step=on_step)
         return e, lambda: e.run(max_steps=n_steps, on_step=on_step)
 
     _, run = window(eng)
@@ -413,7 +411,7 @@ def gravity_profile(path, card, device, n_steps=8):
     rates = []
     for _ in range(3):
         seen["n_active"] = 0
-        e, run = window(None if path == "cosmo" else eng, count)
+        e, run = window(None if path != "dmo" else eng, count)
         t0 = sync_s()
         steps = run()
         dt = sync_s() - t0
@@ -423,7 +421,7 @@ def gravity_profile(path, card, device, n_steps=8):
                       "active_updates_per_s": seen["n_active"] / dt})
     res["steady"] = rates
     print("steady", json.dumps(res["steady"]), flush=True)
-    e, run = window(None if path == "cosmo" else eng)
+    e, run = window(None if path != "dmo" else eng)
     pair_flat.reset_launches()
     box = {}
 
@@ -441,8 +439,10 @@ def gravity_profile(path, card, device, n_steps=8):
     tr["flat_launches_per_step"] = {
         name: v / k for name, v in pair_flat.LAUNCHES.items()}
     print("trace", json.dumps(tr), flush=True)
-    e, _ = window(None if path == "cosmo" else eng)
-    res["phases"] = gravity_phases(e, None if path == "cosmo" else n_steps)
+    e, _ = window(None if path != "dmo" else eng)
+    res["phases"] = gravity_phases(
+        e, {"cosmo": None, "eagle": res["chip_smoke_steps"]}.get(path,
+                                                                  n_steps))
     print("phases", json.dumps(res["phases"]), flush=True)
     return res
 
