@@ -119,7 +119,28 @@ Phases (any failure ends the script with a non-zero exit and no result):
    delta_u exactly, enriched mass > 0, total mass conserved to 1e-6.
    Last, the committed table of the reference's RNG draws
    (``utils/rng_table.json``) reproduced bit for bit on the card.
-12. Prints {"kernels": [...]} (each kernel's launches on its path, errors,
+12. EAGLE volume with its black hole (``--black-holes``: the example's
+   volume with make_ics.py's seed BH, 524,289 particles, the BH K1's
+   fourth species, 16 P2P launches a gravity pass): init_particles() and
+   run() for at most EAGLE_STEPS steps with the launch counters reset
+   just before; ms per step and the BH block's (synchronised).  Checks:
+   finite state, every K1 body of the path launched and 16 P2P launches
+   a pass, total mass (float64) unchanged to 1e-6, the BH's density sums
+   (rho, mom0-2, cs_w) against a float64 brute force over the gas (1e-5
+   of max) and its neighbour mass (1e-5 outside pairs at rounding
+   distance from the kernel's edge).  Then the active-BH pass: a fresh
+   volume with 48 BHs beside gas particles (3 gas masses short of their
+   subgrid masses), 8 bound pairs 0.05 Mpc apart and the seed, every
+   reservoir 1.5 x the AGN threshold, all in the gas's smallest bin, 2
+   steps with each layer timed: swallows, AGN events, one merger a pair,
+   repositions within max_reposition_distance_ratio x eps; in float64
+   the BHs' gain equals the swallowed mass (1e-6), the total mass is
+   unchanged (1e-6) and each BH's momentum is its momentum before plus
+   its swallowed gas's (1e-5 of the largest); each heated particle's
+   jump events x delta_u exactly; no swallowed particle became a star;
+   K1's density on the compacted gas near the BHs against the float64
+   brute force (1e-4).
+13. Prints {"kernels": [...]} (each kernel's launches on its path, errors,
    times, and its bound: the larger of the bytes it must move -- the
    particles' fields it reads, the output slots it writes and the index
    words it reads -- over 3.35 TB/s and its FP32 operations on the run's
@@ -525,6 +546,40 @@ def live_f64(grid, s):
     return torch.remainder(pos, box), live
 
 
+def near_live(grid, s, centres, radius):
+    """(N,) bool over the live particles of ``s``: within ``radius`` of a
+    live particle of ``centres`` (periodic minimum image)."""
+    import torch
+    pos, _ = live_f64(grid, s)
+    pos_c, _ = live_f64(grid, centres)
+    box = torch.tensor(grid.box, dtype=torch.float64, device=pos.device)
+    near = torch.zeros(pos.shape[0], dtype=torch.bool, device=pos.device)
+    for c in range(0, pos_c.shape[0], 16):
+        d = pos[:, None, :] - pos_c[None, c:c + 16, :]
+        d = d - box * torch.round(d / box)
+        near |= ((d * d).sum(-1) < radius * radius).any(1)
+    return near
+
+
+def hold_bh_p2p(solver, grid, state, card):
+    """K1's P2P on the BHs (the fourth species) against the float64 brute
+    force: the BHs from the gas, the DM and the stars (one cross-species
+    launch each) and, with more than one BH, from the BHs (the
+    one-species launch); and the gas within r_cut of a BH from the BHs."""
+    gp, pm = solver.gp, solver.pm
+    H = solver._H_list(4)
+    names = (("gas", "gas"), ("dm", "DM"), ("stars", "stars"), ("bh", "BHs"))
+    bh = state["bh"]
+    for j in range(4 if int((bh["mask"] > 0).sum()) > 1 else 3):
+        hold_p2p_brute(f"BHs from the {names[j][1]}", grid, bh,
+                       state[names[j][0]], gp.G, H[3], H[j], pm.r_s,
+                       pm.r_cut, card)
+    gas = state["gas"]
+    hold_p2p_brute("gas within r_cut of a BH from the BHs", grid, gas, bh,
+                   gp.G, H[0], H[3], pm.r_s, pm.r_cut, card,
+                   among=near_live(grid, gas, bh, pm.r_cut))
+
+
 def sample(n, n_sample, seed, dev, among=None):
     """``n_sample`` seeded indices of range(n) (of ``among``'s true
     entries when given)."""
@@ -845,20 +900,22 @@ def phase_sedov_ring(device, card):
                    RING_REPLACES, card)
 
 
-def brute_p2p(grid, s_i, s_j, G, H, r_s, r_cut, n_sample=1024, seed=1):
+def brute_p2p(grid, s_i, s_j, G, H, r_s, r_cut, n_sample=1024, seed=1,
+              among=None):
     """float64 brute-force short-range acceleration of ``n_sample`` live
-    particles of ``s_i`` from every live particle of ``s_j``: the softened
-    kernel (H = the pair's softening) times the exact erfc truncation
-    (torch.special.erfc), pairs within r_cut over periodic images (the
-    minimum image: r_cut < box / 2).  Returns (sample slots of s_i in its
-    live order, (n, 3) accelerations)."""
+    particles of ``s_i`` (of ``among``'s, a bool over them, when given)
+    from every live particle of ``s_j``: the softened kernel (H = the
+    pair's softening) times the exact erfc truncation (torch.special.erfc),
+    pairs within r_cut over periodic images (the minimum image: r_cut <
+    box / 2).  Returns (sample slots of s_i in its live order, (n, 3)
+    accelerations)."""
     import torch
     pos_i, _ = live_f64(grid, s_i)
     pos_j, live_j = live_f64(grid, s_j)
     m_j = s_j["m"].reshape(-1)[live_j].double()
     dev = pos_i.device
     box = torch.tensor(grid.box, dtype=torch.float64, device=dev)
-    idx = sample(pos_i.shape[0], n_sample, seed, dev)
+    idx = sample(pos_i.shape[0], n_sample, seed, dev, among)
     out = []
     for c in range(0, idx.numel(), 16):
         d = pos_i[idx[c:c + 16]][:, None, :] - pos_j[None, :, :]
@@ -878,17 +935,22 @@ def brute_p2p(grid, s_i, s_j, G, H, r_s, r_cut, n_sample=1024, seed=1):
     return idx, torch.cat(out)
 
 
-def hold_p2p_brute(label, grid, s_i, s_j, G, H_i, H_j, r_s, r_cut, card):
+def hold_p2p_brute(label, grid, s_i, s_j, G, H_i, H_j, r_s, r_cut, card,
+                   among=None):
     """The port's P2P loop (K1: one-species when ``s_j`` is ``s_i``, else
     cross-species) on ``s_i`` from ``s_j`` against the float64 brute
-    force: max error over 1024 sampled particles within 1e-4 of the
-    largest sampled acceleration."""
+    force: max error over 1024 sampled particles (of ``among``'s, a bool
+    over the live ones of ``s_i``, when given) within 1e-4 of the largest
+    sampled acceleration."""
     from swift_subtask_dev_tpu_torch.ops import hydro_flat
     acc, _ = hydro_flat.p2p_gravity_loop(grid, s_i, [s_j], G, H_i, r_s,
                                          r_cut, H_soft_j=[H_j])
     live = (s_i["mask"] > 0).reshape(-1)
-    idx, ref = brute_p2p(grid, s_i, s_j, G, max(H_i, H_j), r_s, r_cut)
+    idx, ref = brute_p2p(grid, s_i, s_j, G, max(H_i, H_j), r_s, r_cut,
+                         among=among)
     got = acc.reshape(-1, 3)[live][idx].double()
+    check(ref.abs().max().item() > 0, f"{label}: no pair within r_cut, so "
+          "the check holds nothing")
     err = (got - ref).abs().max().item() / ref.abs().max().item()
     print(f"  short-range acceleration of {idx.numel()} {label}: float64 "
           f"brute force, max |a| {ref.abs().max().item():.6e}, "
@@ -1403,6 +1465,396 @@ def hold_aged_stars(device, card, n_steps=2):
     check(abs(m1 - m0) <= 1e-6 * m0, "the pass did not conserve mass")
 
 
+def brute_bh_density(grid, bh, gas, dens, gamma, P):
+    """Each live BH's gas sums (rho = sum m w(r/h), mom = sum m w v, cs_w
+    = sum m w cs) in float64 over every live gas particle within gamma
+    h_bh, against ``dens`` (``ops.black_holes.bh_gas_density_loop``):
+    max error relative to each sum's largest value.  The kernel w(u) is
+    the port's own, evaluated in float64."""
+    import torch
+    pos_b, live_b = live_f64(grid, bh)
+    pos_g, live_g = live_f64(grid, gas)
+    box = torch.tensor(grid.box, dtype=torch.float64, device=pos_b.device)
+    m = gas["m"].reshape(-1)[live_g].double()
+    v = gas["v"].reshape(-1, 3)[live_g].double()
+    cs = gas["soundspeed"].reshape(-1)[live_g].double()
+    h = bh["h"].reshape(-1)[live_b].double()
+    ref = {k: [] for k in ("rho", "mom0", "mom1", "mom2", "cs_w")}
+    for c in range(0, pos_b.shape[0], 32):
+        d = pos_b[c:c + 32][:, None, :] - pos_g[None, :, :]
+        d = d - box * torch.round(d / box)
+        u = torch.sqrt((d * d).sum(-1)) / h[c:c + 32][:, None]
+        w, _ = P.kernel.deval(u)
+        mw = torch.where(u < gamma, m[None, :] * w, 0.0)
+        ref["rho"].append(mw.sum(-1))
+        for a in range(3):
+            ref[f"mom{a}"].append((mw * v[None, :, a]).sum(-1))
+        ref["cs_w"].append((mw * cs[None, :]).sum(-1))
+    worst = 0.0
+    for k, parts in ref.items():
+        r = torch.cat(parts)
+        got = dens[k].reshape(-1)[live_b].double()
+        worst = max(worst, ((got - r).abs().max()
+                            / r.abs().max().clamp_min(1e-300)).item())
+    return worst
+
+
+def phase_eagle_bh(device, card, n_side=None):
+    """The EAGLE volume with its seed black hole (``swift-tpu run.yml
+    --eagle --black-holes``: the example with ``black_holes``, 256,902
+    gas, 262,144 DM, 5,242 stars and 1 BH in 25 Mpc): init_particles()
+    and run() for at most EAGLE_STEPS steps with the launch counters reset
+    just before, the BH block timed; the checks, K1's P2P on and from the
+    one BH (``hold_bh_p2p``) among them; then the active-BH pass."""
+    import torch
+    from swift_subtask_dev_tpu_torch import engine_multi as em
+    from swift_subtask_dev_tpu_torch.examples import eagle_volume as ev
+    from swift_subtask_dev_tpu_torch.ops import black_holes as bh_ops
+    from swift_subtask_dev_tpu_torch.ops import pair_flat
+    n_side = n_side or ev.N_SIDE
+    eng, solver, ic = ev.make_engine(n=n_side, device=device,
+                                     black_holes=True)
+    counts = {n: int((sp["mask"] > 0).sum()) for n, sp in eng.state.items()}
+    n = sum(counts.values())
+    print(f"phase 12 (EAGLE volume with its black hole): {counts} = {n} "
+          f"particles, grid cdim={list(eng.grid.cdim)} K={eng.grid.K} "
+          f"(BH columns {eng.state['bh']['mask'].shape[1]}), "
+          f"{eng.bh_model}")
+    if n_side == ev.N_SIDE:
+        check(counts == {"gas": 256902, "dm": 262144, "stars": 5242,
+                         "bh": 1}, f"expected 256,902 gas, 262,144 DM, "
+              f"5,242 stars and 1 BH: {counts}")
+
+    def total_mass():
+        return sum(float((sp["m"] * sp["mask"]).double().sum())
+                   for sp in eng.state.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pair_flat.reset_launches()
+    t0 = time.perf_counter()
+    eng.init_particles()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    m0 = total_mass()
+    keys = ("n_active", "n_woken", "n_heated", "n_converted", "n_lost",
+            "n_swallowed", "n_agn", "n_bh_merged")
+    seen = dict.fromkeys(keys, 0)
+
+    def on_step(d):
+        for k in seen:
+            seen[k] += int(d[k])
+    pt = SyncTimer()
+    pt.wrap(em, "_black_holes", "black_holes")
+    try:
+        t2 = time.perf_counter()
+        steps = eng.run(max_steps=EAGLE_STEPS, on_step=on_step)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    finally:
+        pt.restore()
+    launches = dict(pair_flat.LAUNCHES)
+    a_now = eng.cosmology.a_of_ti(eng.timeline.ti_current)
+    m1 = total_mass()
+    print(f"  init_particles {t1 - t0:.3f} s; {steps} steps in "
+          f"{t3 - t2:.3f} s ({1e3 * (t3 - t2) / steps:.2f} ms/step, "
+          f"{steps * n / (t3 - t2):.1f} particle-steps/s), the BH block "
+          f"{pt.ms.get('black_holes', 0.0) / steps:.3f} ms/step "
+          f"(synchronised), a {ev.RUN_YML['Cosmology']['a_begin']} -> "
+          f"{a_now:.6f}, re-grids {eng.n_regrids} [{card}]")
+    print(f"  {seen}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; kernel "
+          f"launches in the run: {launches}")
+    p2p = launches.get("p2p_gravity", 0) + launches.get(
+        "p2p_gravity_cross", 0)
+    print(f"  K1 P2P launches {p2p} over {steps + 1} gravity passes "
+          f"(16 a pass: 4 one-species, 12 cross-species)")
+    for name, sp in eng.state.items():
+        bad = finite_state(sp)
+        check(not bad, f"{name}: non-finite state fields: {bad}")
+    for name in EAGLE_BODIES:
+        check(launches.get(name, 0) > 0, f"pair_flat_{name}: kernel never "
+              "launched on the EAGLE + BH path")
+    check(launches["p2p_gravity"] >= 4 * (steps + 1)
+          and launches["p2p_gravity_cross"] >= 12 * (steps + 1),
+          "fewer than 16 P2P launches a gravity pass")
+    check(a_now > ev.RUN_YML["Cosmology"]["a_begin"],
+          "the run did not advance a")
+    check(int((eng.state["bh"]["mask"] > 0).sum()) >= 1, "the BH is gone")
+    print(f"  total mass (gas + DM + stars + BH, float64) {m0:.12e} -> "
+          f"{m1:.12e}: relative change {abs(m1 - m0) / m0:.3e}")
+    check(abs(m1 - m0) <= 1e-6 * m0, "the run did not conserve mass")
+    gas, bh, P = eng.state["gas"], eng.state["bh"], eng.sph
+    dens = bh_ops.bh_gas_density_loop(eng.grid, bh, gas, P)
+    err = brute_bh_density(eng.grid, bh, gas, dens, P.kernel.gamma, P)
+    worst, n_b, n_band = brute_ngb_mass(eng.grid, bh, gas, dens["ngb_mass"],
+                                        P.kernel.gamma)
+    live = bh["mask"] > 0
+    print(f"  the BH's density sums (rho {float(dens['rho'][live][0]):.6e}, "
+          f"ngb_mass {float(dens['ngb_mass'][live][0]):.6e}, h "
+          f"{float(bh['h'][live][0]):.6f}) against the float64 brute "
+          f"force over the gas: rho, mom0-2, cs_w within {err:.3e} of "
+          f"max, ngb_mass worst relative excess {worst:.3e} ({n_band} "
+          f"pairs within 1e-5 of the kernel's edge)")
+    check(err <= 1e-5, "the BH's density sums disagree with the brute "
+          "force")
+    check(worst <= 1e-5, "the BH's ngb_mass disagrees with the brute force")
+    hold_bh_p2p(solver, eng.grid, eng.state, card)
+    del eng, gas, bh, dens
+    hold_active_bhs(device, card, n_side)
+
+
+def active_bh_ic(n_side, n_single=48, n_pairs=8, seed=5):
+    """The EAGLE volume's ICs with the seed BH and ``n_single`` BHs 0.05
+    Mpc beside random gas particles (they reposition) plus ``n_pairs``
+    pairs 0.05 Mpc apart (a third of the merging distance) at random
+    places; every BH at least 0.5 Mpc from every BH but its partner.
+    Returns (ic, the pairs' first pids)."""
+    import numpy as np
+    from swift_subtask_dev_tpu_torch.examples import eagle_volume as ev
+    from swift_subtask_dev_tpu_torch.ics import eagle_volume_ic
+    ic = eagle_volume_ic(n=n_side, L=ev.BOX, z=ev.Z_START,
+                         star_frac=ev.STAR_FRAC, seed=ev.SEED,
+                         black_hole=True)
+    gas, bh, L = ic["gas"], ic["bh"], ev.BOX
+    rng = np.random.default_rng(seed)
+    pos = [bh["pos"][0]]
+
+    def free(p):
+        d = np.abs(np.asarray(pos) - p)
+        d = np.minimum(d, L - d)
+        return np.sqrt((d * d).sum(1)).min() > 0.5
+    while len(pos) < 1 + n_single:
+        p = np.mod(gas["pos"][rng.integers(len(gas["pos"]))]
+                   + [0.05, 0.0, 0.0], L)
+        if free(p):
+            pos.append(p)
+    firsts = []
+    while len(firsts) < n_pairs:
+        p = rng.uniform(0, L, 3)
+        if free(p) and free(np.mod(p + [0.05, 0.0, 0.0], L)):
+            firsts.append(len(pos))
+            pos += [p, np.mod(p + [0.05, 0.0, 0.0], L)]
+    nb = len(pos)
+    ic["bh"] = {"pos": np.asarray(pos), "v": np.zeros((nb, 3), np.float32),
+                "m": np.full(nb, bh["m"][0], np.float32),
+                "pid": bh["pid"][0] + np.arange(nb, dtype=np.int64)}
+    return ic, [int(bh["pid"][0]) + k for k in firsts]
+
+
+def hold_active_bhs(device, card, n_side, n_steps=2):
+    """A fresh volume (``active_bh_ic``) whose BHs, after init, are given
+    (the singles) subgrid masses 3 gas masses above their masses (they
+    swallow in the first step), reservoirs 1.5 x the AGN threshold of
+    their neighbour mass (they fire), the gas's smallest time bin
+    (active), the velocity of the gas particle beside them (the singles:
+    they reposition) or, for each pair, one velocity 1,000 km/s off the
+    gas (bound, and too fast to reposition); ``n_steps`` steps with each
+    layer timed.  Checks: swallows, AGN events and one merger a pair; in
+    float64 the BHs' mass gain equals the swallowed gas mass and the total
+    mass is unchanged (1e-6); each BH's momentum after its swallow equals
+    its momentum before plus its swallowed gas's (1e-5 of the largest
+    momentum); each heated particle's jump events x delta_u exactly; each
+    reposition at most max_reposition_distance_ratio x eps; no swallowed
+    pid converted to a star; and, at the final state, K1's density on the
+    compacted gas of 1,024 gas particles near the BHs and K1's P2P on and
+    from the BHs (``hold_bh_p2p``) against the float64 brute force
+    (1e-4)."""
+    import numpy as np
+    import torch
+    from swift_subtask_dev_tpu_torch import engine_multi as em
+    from swift_subtask_dev_tpu_torch.examples import eagle_volume as ev
+    from swift_subtask_dev_tpu_torch.ops import black_holes as bh_ops
+    from swift_subtask_dev_tpu_torch.ops import hydro_flat, stencil
+    ic, pair_pids = active_bh_ic(n_side)
+    eng, solver, _ = ev.make_engine(n=n_side, device=device, ic=ic,
+                               black_holes=True)
+    eng.init_particles()
+    model, P = eng.bh_model, eng.sph
+    gas, bh = eng.state["gas"], eng.state["bh"]
+    live = bh["mask"] > 0
+    m_gas = float(gas["m"][gas["mask"] > 0].double().mean())
+    dens = bh_ops.bh_gas_density_loop(eng.grid, bh, gas, P)
+    # the singles' velocity: their gas particle's (its nearest live one)
+    pos_b, _ = live_f64(eng.grid, bh)
+    pos_g, live_g = live_f64(eng.grid, gas)
+    box = torch.tensor(eng.grid.box, dtype=torch.float64, device=device)
+    vg = gas["v_full"].reshape(-1, 3)[live_g]
+    d = pos_b[:, None, :] - pos_g[None, :, :]
+    d = d - box * torch.round(d / box)
+    r = torch.sqrt((d * d).sum(-1))
+    near = r.argmin(1)
+    v_b = bh["v_full"][live].clone()
+    pid_b = bh["pid"][live]
+    paired = torch.zeros_like(pid_b, dtype=torch.bool)
+    for p0 in pair_pids:
+        a, b = pid_b == p0, pid_b == p0 + 1
+        v = vg[near[a]][0] + torch.tensor([1000.0, 0.0, 0.0],
+                                          device=device)
+        v_b[a], v_b[b] = v, v
+        paired |= a | b
+    single = ~paired & (pid_b != int(pid_b.min()))
+    v_b[single] = vg[near[single]]
+    bin_ = int(gas["time_bin"][gas["mask"] > 0].min())
+    # the singles 3 gas masses short (they swallow); the seed and the pairs
+    # not (a pair's members would swallow gas of other momenta and part)
+    m_sub = torch.where(single, bh["m"][live] + 3.0 * m_gas, bh["m"][live])
+    resv = 1.5 * float(np.float32(model.n_heat)
+                       * np.float32(model.delta_u)) \
+        * dens["ngb_mass"][live] / 48.0
+    fields = {"v_full": v_b, "m_subgrid": m_sub, "energy_reservoir": resv,
+              "time_bin": torch.full_like(pid_b, bin_)}
+    for k, v in fields.items():
+        bh[k] = bh[k].clone()
+        bh[k][live] = v.to(bh[k].dtype)
+    n_bh = int(live.sum())
+
+    def total_mass():
+        return sum(float((sp["m"] * sp["mask"]).double().sum())
+                   for sp in eng.state.values())
+
+    def live_pids(name):
+        sp = eng.state[name]
+        return set(sp["pid"][sp["mask"] > 0].tolist())
+    m0 = total_mass()
+    cap = {"fb": [], "bid": [], "absorb": [], "repos": []}
+    orig = {"fb": stencil.feedback_apply_loop,
+            "bid": bh_ops.bh_swallow_target_loop,
+            "absorb": em._absorb, "repos": bh_ops.bh_reposition_loop}
+
+    def fb(grid, gas_s, src, p, lo, hi, du):
+        out = orig["fb"](grid, gas_s, src, p, lo, hi, du)
+        cap["fb"].append((out, du))
+        return out
+
+    def bid_cap(grid, gas_s, *a):
+        out = orig["bid"](grid, gas_s, *a)
+        cap["bid"].append((gas_s, out))
+        return out
+
+    def absorb(b, gains):
+        out = orig["absorb"](b, gains)
+        if "dms" not in gains:              # the swallow's, not a merger's
+            cap["absorb"].append((b, out))
+        return out
+
+    def repos(*a, **kw):
+        out = orig["repos"](*a, **kw)
+        cap["repos"].append(out)
+        return out
+    stencil.feedback_apply_loop = fb
+    bh_ops.bh_swallow_target_loop = bid_cap
+    em._absorb = absorb
+    bh_ops.bh_reposition_loop = repos
+    pt = eagle_phase_timer(eng)
+    pt.wrap(em, "_black_holes", "black_holes")
+    diags, changed = [], []
+    try:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            g0, s0 = live_pids("gas"), live_pids("stars")
+            bh_m0 = float((eng.state["bh"]["m"] * eng.state["bh"]["mask"])
+                          .double().sum())
+            diags.append(eng.step())
+            bh_m1 = float((eng.state["bh"]["m"] * eng.state["bh"]["mask"])
+                          .double().sum())
+            changed.append((g0 - live_pids("gas"), live_pids("stars") - s0,
+                            bh_m1 - bh_m0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        stencil.feedback_apply_loop = orig["fb"]
+        bh_ops.bh_swallow_target_loop = orig["bid"]
+        em._absorb = orig["absorb"]
+        bh_ops.bh_reposition_loop = orig["repos"]
+        pt.restore()
+    m1 = total_mass()
+    n_sw = [int(d["n_swallowed"]) for d in diags]
+    n_agn = [int(d["n_agn"]) for d in diags]
+    n_mg = [int(d["n_bh_merged"]) for d in diags]
+    n_conv = [int(d["n_converted"]) for d in diags]
+    # per step: the swallowed pids and mass (at the swallow), the BHs'
+    # mass gain, no swallowed pid among the new stars
+    both, worst_dm, worst_p, sw_mass = 0, 0.0, 0.0, 0.0
+    for (gas_s, bid), (gone, new, dm_bh) in zip(cap["bid"], changed):
+        hit = bid >= 0
+        sw = set(gas_s["pid"][hit].tolist())
+        both += len(sw & new)
+        check(gone == sw | new, "gas left the columns unaccounted for")
+        m_sw = float(gas_s["m"][hit].double().sum())
+        sw_mass += m_sw
+        worst_dm = max(worst_dm, abs(dm_bh - m_sw) / max(m_sw, 1e-300))
+    # momentum: each BH's after its swallow, against before + its gas's
+    for (gas_s, bid), (b0, b1) in zip(cap["bid"], cap["absorb"]):
+        hit = bid >= 0
+        pg = (gas_s["m"][hit].double()[:, None]
+              * gas_s["v_full"][hit].double())
+        per = {}
+        for pid, mom in zip(bid[hit].tolist(), pg):
+            per[pid] = per.get(pid, 0.0) + mom
+        lv = b0["mask"] > 0
+        p0 = (b0["m"][lv].double()[:, None] * b0["v_full"][lv].double())
+        p1 = (b1["m"][lv].double()[:, None] * b1["v_full"][lv].double())
+        want = torch.stack([per.get(int(q), torch.zeros(
+            3, dtype=torch.float64, device=device))
+            for q in b0["pid"][lv].tolist()])
+        # f32 momenta: the scale is the largest of them
+        scale = max(float(torch.cat([p0, p1, want]).abs().max()), 1e-300)
+        worst_p = max(worst_p, float((p1 - p0 - want).abs().max()) / scale)
+    exact = heated = 0
+    for (du_add, nev), du in cap["fb"]:
+        hot = nev > 0
+        heated += int(hot.sum())
+        exact += int((du_add[hot] == nev[hot].to(torch.float32)
+                      * float(np.float32(du))).sum())
+    max_d = model.reposition_ratio * eng.cfg.eps_soft
+    moved, longest = 0, 0.0
+    for found, delta in cap["repos"]:
+        moved += int(found.sum())
+        if bool(found.any()):
+            longest = max(longest, float(torch.sqrt(
+                (delta[found].double() ** 2).sum(-1)).max()))
+    print(f"  active BHs ({n_bh}: 48 beside gas, {len(pair_pids)} pairs, "
+          f"the seed; bin {bin_}): {n_steps} steps in {wall:.3f} s; per "
+          f"step swallowed {n_sw}, AGN events {n_agn}, mergers {n_mg}, "
+          f"conversions {n_conv}; repositioned {moved} (longest jump "
+          f"{longest:.6f} of at most {max_d:.6f} Mpc); heated gas {heated} "
+          f"({exact} jumps equal to events x delta_u); swallowed mass "
+          f"{sw_mass:.9e} (BHs' gain within {worst_dm:.3e}); BH momentum "
+          f"within {worst_p:.3e} of max; swallowed and converted {both}; "
+          f"total mass {m0:.12e} -> {m1:.12e} (relative change "
+          f"{abs(m1 - m0) / m0:.3e}) [{card}]")
+    print(f"  layers of those steps, synchronised ms per step (of "
+          f"{1e3 * wall / n_steps:.2f}): "
+          + ", ".join(f"{lb} {v / n_steps:.3f}"
+                      for lb, v in sorted(pt.ms.items(),
+                                          key=lambda kv: -kv[1]))
+          + f" [{card}]")
+    check(n_sw[0] > 0, "the active BHs swallowed no gas")
+    check(n_agn[0] > 0, "no AGN event")
+    check(sum(n_mg) == len(pair_pids), "not every pair merged")
+    check(moved > 0 and longest <= max_d * (1 + 1e-6),
+          "no reposition, or one longer than the allowed distance")
+    check(worst_dm <= 1e-6, "the BHs' mass gain is not the swallowed mass")
+    check(abs(m1 - m0) <= 1e-6 * m0, "the pass did not conserve mass")
+    check(worst_p <= 1e-5, "a BH's momentum is not before + swallowed")
+    check(heated > 0 and exact == heated,
+          "a heated particle's jump is not events x delta_u")
+    check(both == 0, "a swallowed particle also became a star")
+    gas, bh = eng.state["gas"], eng.state["bh"]
+    d = hydro_flat.density_loop(eng.grid, gas, P)
+    h = torch.where(gas["mask"] > 0, gas["h"], 1.0)
+    rho = (d["rho"] + gas["m"] * float(np.float32(P.kernel.root))) / h ** 3
+    near = near_live(eng.grid, gas, bh, 1.0)
+    err, mean = brute_density(eng, P, state={**gas, "rho": rho},
+                              among=near)
+    print(f"  K1 density of {min(1024, int(near.sum()))} gas particles "
+          f"within 1 Mpc of a BH on the compacted gas: float64 brute "
+          f"force mean {mean:.6e}, max relative error {err:.3e}")
+    check(err <= 1e-4, "K1's density on the compacted gas disagrees with "
+          "the brute force")
+    hold_bh_p2p(solver, eng.grid, eng.state, card)
+
+
 def phase_vpu_peak(device, card):
     """T1: the FP32 probe against its plain version at 2 x 64 steps, then
     its entry point (the launch counter reset just before)."""
@@ -1494,6 +1946,7 @@ def main():
         kernels += phase_cosmo(device, card)
         phase_dmo(device, card)
         kernels += phase_eagle(device, card)
+        phase_eagle_bh(device, card)
     except (PhaseFailed, ImportError, RuntimeError, ValueError,
             OSError, subprocess.SubprocessError) as e:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}",

@@ -1,37 +1,46 @@
-"""Multi-species engine: gas, dark matter and stars in one step.
+"""Multi-species engine: gas, dark matter, stars and black holes in one
+step.
 
-Port of the gas, DM and star branches of the reference's
+Port of the gas, DM, star and black-hole branches of the reference's
 ``engine_multi.py`` (the SmallCosmoVolume configuration, and the EAGLE
-volume without black holes: ``swift-tpu run.yml --eagle``).  Each species
-is its own padded tile state on the shared column grid, and one step
+volume: ``swift-tpu run.yml --eagle [--black-holes]``).  Each species is
+its own padded tile state on the shared column grid, and one step
 
     drift(all species) -> rebucket(each on its own trigger) -> SPH loops
-    (gas) -> chemistry smoothing (gas) -> the stars' smoothing-length
-    ghost -> short-range gravity (every species from every species: K1's
-    one-species and cross-species P2P launches) -> EAGLE thermal feedback
-    -> enrichment -> cooling (gas) -> gas KDK, limiter and feedback sync
-    -> star formation -> KDK of DM and stars
+    (gas) -> chemistry smoothing (gas) -> the stars' and BHs'
+    smoothing-length ghost -> short-range gravity (every species from
+    every species: K1's one-species and cross-species P2P launches) ->
+    black holes (density, reposition, accretion, swallow, AGN heating,
+    BH-BH mergers) -> EAGLE thermal feedback -> enrichment -> cooling
+    (gas) -> gas KDK, limiter and feedback sync (SNII and AGN heating) ->
+    star formation -> KDK of DM, stars and BHs
 
 with the PM mesh over the union of the species on its own split
 timestep.  The host owns the timeline, as in ``engine.Engine``.  The
-cross-species star loops are ``ops.stencil``'s, chemistry smoothing runs
-on the flat pair kernel's chemistry body
-(``hydro_flat.chemistry_smooth_loop``) and the stars' ghost is
-``ops.species_ghost``.
+cross-species star loops are ``ops.stencil``'s, the BH loops
+``ops.black_holes``' (on the same walk), chemistry smoothing runs on the
+flat pair kernel's chemistry body (``hydro_flat.chemistry_smooth_loop``)
+and the stars' and BHs' ghost is ``ops.species_ghost``.
 
-Two reference hazards are not copied (ROADMAP.md, queue 3): the flat pair
-kernel's range words assume z-sorted columns, so the stars are z-sorted
-when they are loaded and after each step's star formation (the reference
-loads them and places newborn stars unsorted); and star formation leaves
-holes in the gas columns, which the kernel's live-tile counts assume
-absent, so the gas columns are compacted after a step that converted gas
-(the reference keeps the holes until the next rebucket).  Neither
-changes a particle's physics: slots are compared per particle id.
+Reference hazards that are not copied (ROADMAP.md, queue 3): the flat
+pair kernel's range words assume z-sorted columns, so the stars and BHs
+are z-sorted when they are loaded and after a step that formed stars,
+moved a BH or merged two (the reference leaves them unsorted); star
+formation and swallows leave holes in the gas columns, which the
+kernel's live-tile counts assume absent, so the gas columns are
+compacted after a step that converted gas and right after a swallow,
+before the limiter's wake scan (the reference keeps the holes until the
+next rebucket); a gas particle swallowed in a step does not also form a
+star in it (the reference's star formation takes the step's activity
+from before the swallow); and the BH collect loops count each swallowed
+particle or merged BH once (``ops.black_holes``).  None changes a
+particle's physics otherwise: slots are compared per particle id.
 
-Refused at construction (ROADMAP.md, queue 1 item 9): black holes,
-sinks, neutrinos, radiative transfer, tracers and external potentials,
-every star-formation, feedback and enrichment model but EAGLE's, and
-every backend but "flat".
+Refused at construction (ROADMAP.md, queue 1 item 9): sinks, neutrinos,
+radiative transfer, tracers and external potentials, every
+star-formation, feedback and enrichment model but EAGLE's, every BH
+model but EAGLE's and the Default (passive) one (the spin-jet model
+among them), and every backend but "flat".
 """
 
 from __future__ import annotations
@@ -48,7 +57,9 @@ from .engine import (Engine, EngineConfig, StepTables, NBINS, F32,
 from .grid.cellgrid import CellGrid, bucket_fields
 from .models.sph import sphenix
 from .models.sph.sphenix import CosmoFactors, SPHENIXParams
+from .ops import black_holes as bh_ops
 from .ops import hydro_flat, species_ghost, stencil
+from .subgrid.black_holes import DefaultBlackHoles, EagleBlackHoles
 from .subgrid.chemistry import N_ELEMENTS
 from .subgrid.enrichment import EagleEnrichment
 from .subgrid.feedback import EagleThermalFeedback
@@ -56,9 +67,9 @@ from .subgrid.star_formation import EagleStarFormation
 from .utils import timeline as tl
 
 # the species the port runs, in the gravity and mesh lists' order
-SPECIES = ("gas", "dm", "stars")
-_REFUSED = ("bh_model", "nu_model", "sink_model", "external_potential",
-            "rt_fn", "tracers")
+SPECIES = ("gas", "dm", "stars", "bh")
+_REFUSED = ("nu_model", "sink_model", "external_potential", "rt_fn",
+            "tracers")
 # free star slots a cell keeps after a re-grid (space_extra_sparts)
 STAR_EXTRA_SLOTS = 8
 
@@ -73,7 +84,7 @@ def _eps_of(eps_soft, name: str) -> float:
     """Per-species timestep softening: ``eps_soft`` is a float, or a
     (baryon, dm) pair (Gravity:comoving_baryon_softening /
     comoving_DM_softening; timestep.h:141 uses the particle's own):
-    stars take the baryon value."""
+    stars and black holes take the baryon value."""
     if isinstance(eps_soft, tuple):
         return float(eps_soft[1] if name == "dm" else eps_soft[0])
     return float(eps_soft)
@@ -118,10 +129,16 @@ def zsort_slots(sp: Dict) -> Dict:
     return _reorder(sp, torch.argsort(key, dim=1, stable=True))
 
 
+def _live_first(sp: Dict) -> torch.Tensor:
+    """The slot order with a species' live slots first in each cell, in
+    their order."""
+    return torch.argsort((sp["mask"] <= 0).to(torch.int8), dim=1,
+                         stable=True)
+
+
 def compact_slots(sp: Dict) -> Dict:
     """A species' live slots first in each cell, in their order."""
-    return _reorder(sp, torch.argsort((sp["mask"] <= 0).to(torch.int8),
-                                      dim=1, stable=True))
+    return _reorder(sp, _live_first(sp))
 
 
 def _convert_gas_to_stars(grid: CellGrid, gas: Dict, stars: Dict, conv,
@@ -224,27 +241,128 @@ def _enrich(grid, p, enrichment, gas, stars, T, stars_act):
     return gas, stars, torch.sum(rec["dm"])
 
 
+def _bh_density(grid, p, gas, bh, act_b):
+    """The passive (Default) black holes' density pass: the gas density
+    and neighbour mass of the active BHs (black_holes/Default)."""
+    dens = bh_ops.bh_gas_density_loop(grid, bh, gas, p)
+    h_bh = torch.where(bh["mask"] > 0, bh["h"], 1.0)
+    return {**bh,
+            "rho_gas": torch.where(act_b, dens["rho"] / h_bh ** 3,
+                                   bh["rho_gas"]),
+            "ngb_mass": torch.where(act_b, dens["ngb_mass"],
+                                    bh["ngb_mass"])}
+
+
+def _black_holes(grid, p, cfg, cosmo, bh_model: EagleBlackHoles, gas, bh,
+                 T, bh_act):
+    """The EAGLE black holes (runner_black_holes.c: bh_density, bh_swallow,
+    do_gas_swallow, bh_feedback; black_holes/EAGLE): density, the
+    reposition to the potential minimum, accretion, the swallow (mark,
+    collect, apply), AGN heating from the reservoir and BH-BH mergers.
+    Only active BHs move, swallow, fire or absorb a merger.  Returns
+    (gas, bh, swallowed (C, K_gas) bool, heated (C, K_gas) bool,
+    n_agn, n_merged, moved): ``moved`` says whether a BH jumped or
+    merged (the columns need re-sorting)."""
+    act_b = bh_act[2]
+    dens = bh_ops.bh_gas_density_loop(grid, bh, gas, p)
+    dt_bh = T.dt_alpha[_tb_index(bh["time_bin"])] * act_b
+    moved = False
+    # reposition among slow-enough gas neighbours (black_holes.h:193-230,
+    # black_holes_iact.h:290)
+    if bh_model.reposition_ratio > 0.0 and cfg.eps_soft > 0.0:
+        rho = torch.clamp_min(dens["rho"], 1e-30)
+        cs = dens["cs_w"] / rho * _f32(cosmo.a_factor_sound_speed)
+        found, delta = bh_ops.bh_reposition_loop(
+            grid, {**bh, "cs_gas": cs}, gas, p,
+            max_dist=bh_model.reposition_ratio * cfg.eps_soft,
+            v2_max_fac=bh_model.repos_vel_ratio,
+            v2_min_thresh=bh_model.repos_vel_min)
+        move = found & act_b
+        jump = torch.where(move, _norm(delta), 0.0)
+        # jumps count against the rebucket's drift budget
+        bh = {**bh, "off": torch.where(move[..., None], bh["off"] + delta,
+                                       bh["off"]),
+              "drift_accum": bh["drift_accum"] + torch.amax(jump)}
+        moved = bool(move.any())
+
+    bh = bh_model.accrete(bh, dens, cosmo, dt_bh)
+    bh = {**bh, "swallow_prob": torch.where(act_b, bh["swallow_prob"], 0.0)}
+
+    # swallow: mark, collect, apply (mass and momentum move)
+    bid = bh_ops.bh_swallow_target_loop(grid, gas, bh, p, T.ti_lo, T.ti_hi)
+    gains = bh_ops.bh_swallow_collect_loop(grid, bh, gas, bid)
+    bh = _absorb(bh, gains)
+    swallowed = bid >= 0
+    gas = {**gas, "mask": torch.where(swallowed, 0.0, gas["mask"])}
+
+    # AGN heating: the reservoir released through the stochastic kernel
+    fb_energy, resv = bh_model.agn_fire(bh)
+    fb_energy = torch.where(act_b, fb_energy, 0.0)
+    bh = {**bh, "energy_reservoir": torch.where(act_b, resv,
+                                                bh["energy_reservoir"])}
+    du_add, nev = stencil.feedback_apply_loop(
+        grid, gas, {**bh, "fb_energy": fb_energy,
+                    "fb_ngb_mass": bh["ngb_mass"]},
+        p, T.ti_lo, T.ti_hi, bh_model.delta_u)
+    gas = {**gas, "u_full": gas["u_full"] + du_add, "u": gas["u"] + du_add}
+    n_agn = torch.sum(fb_energy > 0)
+
+    # BH-BH mergers: the lighter onto the heavier when bound and close
+    # (black_holes_iact.h runner_iact_nonsym_bh_bh_swallow)
+    n_merged = torch.zeros((), dtype=torch.int64, device=n_agn.device)
+    if bh_model.merging_ratio > 0.0 and cfg.eps_soft > 0.0:
+        vic = bh_ops.bh_merger_mark_loop(
+            grid, bh, p, max_dist=bh_model.merging_ratio * cfg.eps_soft,
+            G=bh_model.G, threshold=bh_model.merger_threshold)
+        vic = torch.where(act_b, vic, -1)           # active victims only
+        not_vic = vic < 0
+        mg = bh_ops.bh_merger_collect_loop(grid, bh, vic, not_vic)
+        consumed = bh_ops.bh_merger_consumed_loop(grid, bh, vic, not_vic)
+        bh = _absorb(bh, mg)
+        bh = {**bh, "m_subgrid": bh["m_subgrid"] + mg["dms"],
+              "energy_reservoir": bh["energy_reservoir"] + mg["dresv"],
+              "mask": torch.where(consumed, 0.0, bh["mask"])}
+        n_merged = torch.sum(consumed)
+        moved = moved or bool(n_merged > 0)
+    return gas, bh, swallowed, nev > 0, n_agn, n_merged, moved
+
+
+def _absorb(bh, gains):
+    """A BH's dynamical mass and momentum after it takes in ``gains``
+    (dm, dp0-2); its velocity is kept where it took nothing."""
+    m_new = bh["m"] + gains["dm"]
+    dp = torch.stack([gains["dp0"], gains["dp1"], gains["dp2"]], -1)
+    v_new = (bh["m"][..., None] * bh["v_full"] + dp) \
+        / torch.clamp_min(m_new, 1e-30)[..., None]
+    keep = (gains["dm"] <= 0)[..., None]
+    return {**bh, "m": m_new,
+            "v_full": torch.where(keep, bh["v_full"], v_new)}
+
+
 def multi_step(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
                gravity_fn: Optional[Callable], eps_soft,
                cosmo: CosmoFactors, state: Dict[str, Dict], T: StepTables,
                cooling_fn: Optional[Callable] = None, sf=None,
                feedback: Optional[EagleThermalFeedback] = None,
-               enrichment: Optional[EagleEnrichment] = None):
-    """One engine step over the {'gas', 'dm', 'stars'} species.  ``sf``
-    is the (EagleStarFormation, entropy floor or None) pair.  Returns
+               enrichment: Optional[EagleEnrichment] = None, bh_model=None):
+    """One engine step over the {'gas', 'dm', 'stars', 'bh'} species.
+    ``sf`` is the (EagleStarFormation, entropy floor or None) pair;
+    ``bh_model`` an EagleBlackHoles or DefaultBlackHoles.  Returns
     (new_state, diagnostics)."""
-    gas, dm, stars = (state.get(n) for n in SPECIES)
+    gas, dm, stars, bh = (state.get(n) for n in SPECIES)
     dev = next(iter(state.values()))["mask"].device
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     zf = torch.zeros((), device=dev)
     n_overflow, n_active, too_small_n, n_woken = zero, zero, zero, zero
     n_converted, n_lost, n_heated = zero, zero, zero
+    n_swallowed, n_agn, n_bh_merged = zero, zero, zero
     m_enriched = zf
     n_ghost_iter = 0
     h_max_active = zf
     acts = {}
     Z_smooth = None
-    heated = None
+    heated = bh_heated = None
+    bh_moved = False
 
     # --- drift + rebucket + SPH loops (gas) ---------------------------------
     if gas is not None:
@@ -301,6 +419,22 @@ def multi_step(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
         acts["stars"] = _species_active(d, T)
         n_active = n_active + torch.sum(acts["stars"][2])
 
+    # --- drift + rebucket (black holes) --------------------------------------
+    if bh is not None:
+        d = {**bh, "off": bh["off"] + bh["v_full"] * T.dt_drift
+             * bh["mask"][..., None]}
+        # the BH-gas loops reach out to gamma h_bh
+        reach_b = _f32(cfg.p2p_reach)
+        if bh_model is not None:
+            reach_b = torch.clamp_min(
+                torch.amax(torch.where(d["mask"] > 0, d["h"], 0.0))
+                * _f32(p.kernel.gamma), reach_b)
+        d, nov = _rebucket_phase(grid, cfg, d, T, reach_b)
+        n_overflow = n_overflow + nov
+        bh = d
+        acts["bh"] = _species_active(d, T)
+        n_active = n_active + torch.sum(acts["bh"][2])
+
     # --- the stars' ghost (runner_ghost.c:72) before any consumer ------------
     if (cfg.species_ghost_iterations > 0 and gas is not None
             and stars is not None
@@ -312,14 +446,47 @@ def multi_step(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
         stars = {**stars, "h": h_s}
         h_max_active = torch.maximum(
             h_max_active, torch.amax(torch.where(act_s, h_s, 0.0)))
+    # the BHs' ghost (runner_ghost.c:577): Bondi densities and the
+    # reposition and merger radii use the converged ball
+    if (cfg.species_ghost_iterations > 0 and gas is not None
+            and bh is not None and bh_model is not None):
+        act_b = acts["bh"][2]
+        h_b, _, _ = species_ghost.species_h_iterate(
+            grid, bh, gas, p, act_b, max_iter=cfg.species_ghost_iterations,
+            packed=True)
+        bh = {**bh, "h": h_b}
+        h_max_active = torch.maximum(
+            h_max_active, torch.amax(torch.where(act_b, h_b, 0.0)))
 
     # --- joint gravity (every species sources, every species receives) ------
     if gravity_fn is not None:
-        pool = {n: sp for n, sp in zip(SPECIES, (gas, dm, stars))
+        pool = {n: sp for n, sp in zip(SPECIES, (gas, dm, stars, bh))
                 if sp is not None}
         pool = _apply_gravity(gravity_fn, pool,
                               {n: a[2] for n, a in acts.items()})
-        gas, dm, stars = (pool.get(n) for n in SPECIES)
+        gas, dm, stars, bh = (pool.get(n) for n in SPECIES)
+
+    # --- black holes (after gravity: the reposition reads the potential) ---
+    if bh_model is not None and bh is not None and gas is not None:
+        if bh_model.kind == "default":
+            bh = _bh_density(grid, p, gas, bh, acts["bh"][2])
+        else:
+            (gas, bh, swallowed, bh_heated, n_agn, n_bh_merged,
+             bh_moved) = _black_holes(grid, p, cfg, cosmo, bh_model, gas,
+                                      bh, T, acts["bh"])
+            n_swallowed = torch.sum(swallowed)
+            if bool(n_swallowed > 0):
+                # the swallowed slots are holes that the flat kernel's
+                # live-tile counts assume absent, and its wake scan runs
+                # later in this step: front-pack the gas now, with the
+                # step's per-slot tensors
+                order = _live_first(gas)
+                gas = _reorder(gas, order)
+                acts["gas"] = tuple(torch.gather(x, 1, order)
+                                    for x in acts["gas"])
+                bh_heated = torch.gather(bh_heated, 1, order)
+                if Z_smooth is not None:
+                    Z_smooth = torch.gather(Z_smooth, 1, order)
 
     # --- stellar feedback and enrichment (stars -> gas) ----------------------
     if feedback is not None and stars is not None and gas is not None:
@@ -346,7 +513,10 @@ def multi_step(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
         n_woken = n_woken + woken
 
         # feedback sync: heated inactive particles join the current step
-        # (runner_do_sync, runner_time_integration.c:1478)
+        # (runner_do_sync, runner_time_integration.c:1478); AGN heating
+        # syncs through the same machinery
+        if bh_heated is not None:
+            heated = bh_heated if heated is None else heated | bh_heated
         if heated is not None:
             sync = heated & mask_b & ~active & (gas["time_bin"] > 0)
             new_bin_w = torch.clamp_max(_tb_index(gas["time_bin"]).to(I32),
@@ -359,8 +529,11 @@ def multi_step(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
             sf_model, sf_floor = sf
             dt_star = T.dt_alpha[tb]
             gas_ch = gas if Z_smooth is None else {**gas, "Z": Z_smooth}
+            # a particle swallowed this step is no longer gas: the
+            # reference's ``active`` still holds it (ROADMAP.md, queue 3)
             conv, sfr = sf_model.conversion_mask(
-                gas_ch, cosmo, dt_star, T.ti_lo, T.ti_hi, sf_floor, active)
+                gas_ch, cosmo, dt_star, T.ti_lo, T.ti_hi, sf_floor,
+                active & (gas["mask"] > 0))
             # sticky per-particle SFR (star_formation_struct.h)
             if "sfr" in gas:
                 gas = {**gas, "sfr": torch.where(active, sfr, gas["sfr"])
@@ -370,27 +543,29 @@ def multi_step(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
             n_overflow = n_overflow + n_lost
         bin_counts = bin_counts + _bin_counts(gas["mask"] > 0,
                                               gas["time_bin"])
-    for name, sp in (("dm", dm), ("stars", stars)):
+    kicked = {}
+    for name, sp in (("dm", dm), ("stars", stars), ("bh", bh)):
         if sp is None:
             continue
         _, tb, active = acts[name]
         sp, too_small = _dm_kdk(cfg, _eps_of(eps_soft, name), sp, T,
                                 active, tb)
         too_small_n = too_small_n + torch.sum(too_small)
-        # the stars' bins include this step's newborns
-        bin_counts = bin_counts + _bin_counts(sp["mask"] > 0,
-                                              sp["time_bin"])
-        if name == "dm":
-            dm = sp
-        else:
-            stars = sp
+        # the stars' bins include this step's newborns; the BHs' include
+        # those merged this step, as the reference's do
+        counted = acts[name][0] if name == "bh" else sp["mask"] > 0
+        bin_counts = bin_counts + _bin_counts(counted, sp["time_bin"])
+        kicked[name] = sp
+    dm, stars, bh = (kicked.get(n) for n in ("dm", "stars", "bh"))
 
+    # the flat kernel's columns: the gas front-packed, the stars and BHs
+    # z-sorted (after the KDK: the step's activity masks are by slot)
     if sf is not None and bool(n_converted > 0):
-        # the flat kernel's columns: the gas front-packed, the stars
-        # z-sorted (after the KDK: the step's activity masks are by slot)
         gas = compact_slots(gas)
         stars = zsort_slots(stars)
-    out = {n: sp for n, sp in zip(SPECIES, (gas, dm, stars))
+    if bh_moved:
+        bh = zsort_slots(bh)
+    out = {n: sp for n, sp in zip(SPECIES, (gas, dm, stars, bh))
            if sp is not None}
     diag = {
         "bin_counts": bin_counts,
@@ -404,6 +579,9 @@ def multi_step(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
         "n_converted": n_converted,
         "n_lost": n_lost,
         "m_enriched": m_enriched,
+        "n_swallowed": n_swallowed,
+        "n_agn": n_agn,
+        "n_bh_merged": n_bh_merged,
         # fullest live cell over every species (occupancy re-grid trigger)
         "k_max_live": torch.amax(torch.stack([
             torch.amax(torch.sum(sp["mask"] > 0, dim=1))
@@ -416,27 +594,32 @@ def multi_init(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
                gravity_fn: Optional[Callable], eps_soft,
                cosmo: CosmoFactors, state: Dict[str, Dict], T: StepTables):
     """engine_init_particles for every species: density/ghost, the stars'
-    ghost, forces, initial bins and the first half-kick
+    and BHs' ghost, forces, initial bins and the first half-kick
     (engine.c:1893)."""
-    gas, dm, stars = (state.get(n) for n in SPECIES)
+    gas, dm, stars, bh = (state.get(n) for n in SPECIES)
     dev = next(iter(state.values()))["mask"].device
     n_ghost_iter = 0
     if gas is not None:
         gas, n_ghost_iter = _gas_loops(grid, p, cfg, cosmo, gas,
                                        gas["mask"] > 0, T.dt_alpha * 0.0)
-    # the stars' h starts converged (the load-time h is only a guess)
-    if cfg.species_ghost_iterations > 0 and gas is not None \
-            and stars is not None:
-        h_s, _, _ = species_ghost.species_h_iterate(
-            grid, stars, gas, p, stars["mask"] > 0,
-            max_iter=cfg.species_ghost_iterations)
-        stars = {**stars, "h": h_s}
+    # the stars' and BHs' h start converged (the load-time h is a guess)
+    if cfg.species_ghost_iterations > 0 and gas is not None:
+        if stars is not None:
+            h_s, _, _ = species_ghost.species_h_iterate(
+                grid, stars, gas, p, stars["mask"] > 0,
+                max_iter=cfg.species_ghost_iterations)
+            stars = {**stars, "h": h_s}
+        if bh is not None:
+            h_b, _, _ = species_ghost.species_h_iterate(
+                grid, bh, gas, p, bh["mask"] > 0,
+                max_iter=cfg.species_ghost_iterations, packed=True)
+            bh = {**bh, "h": h_b}
     if gravity_fn is not None:
-        pool = {n: sp for n, sp in zip(SPECIES, (gas, dm, stars))
+        pool = {n: sp for n, sp in zip(SPECIES, (gas, dm, stars, bh))
                 if sp is not None}
         pool = _apply_gravity(gravity_fn, pool,
                               {n: sp["mask"] > 0 for n, sp in pool.items()})
-        gas, dm, stars = (pool.get(n) for n in SPECIES)
+        gas, dm, stars, bh = (pool.get(n) for n in SPECIES)
 
     bin_counts = torch.zeros(NBINS + 1, dtype=torch.int64, device=dev)
     too_small_n = torch.zeros((), dtype=torch.int64, device=dev)
@@ -466,7 +649,8 @@ def multi_init(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
         ke = sphenix.kick_extra(p, s, cosmo, dt_k1 * s["mask"])
         gas = {**s, "u_full": ke["u_full"], "u_dt": ke["u_dt"]}
         bin_counts = bin_counts + _bin_counts(mask_b, gas["time_bin"])
-    for name, sp in (("dm", dm), ("stars", stars)):
+    kicked = {}
+    for name, sp in (("dm", dm), ("stars", stars), ("bh", bh)):
         if sp is None:
             continue
         mask_b = sp["mask"] > 0
@@ -484,12 +668,10 @@ def multi_init(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
         d["v_full"] = d["v_full"] + d["a_grav"] * dt_k1[..., None] \
             * d["mask"][..., None]
         bin_counts = bin_counts + _bin_counts(mask_b, d["time_bin"])
-        if name == "dm":
-            dm = d
-        else:
-            stars = d
+        kicked[name] = d
+    dm, stars, bh = (kicked.get(n) for n in ("dm", "stars", "bh"))
 
-    out = {n: sp for n, sp in zip(SPECIES, (gas, dm, stars))
+    out = {n: sp for n, sp in zip(SPECIES, (gas, dm, stars, bh))
            if sp is not None}
     diag = {
         "bin_counts": bin_counts,
@@ -539,22 +721,24 @@ def _mesh_open_multi(state: Dict[str, Dict], dt: float):
     return new
 
 
-def _refuse_model(name: str, obj, cls):
-    if obj is not None and not isinstance(obj, cls):
+def _refuse_model(name: str, obj, *classes):
+    if obj is not None and not isinstance(obj, classes):
+        runs = " and ".join(c.__name__ for c in classes)
         raise NotImplementedError(
             f"MultiEngine: {name} {type(obj).__name__} not ported; the port "
-            f"runs {cls.__name__} only (ROADMAP.md, queue 1 item 9)")
+            f"runs {runs} only (ROADMAP.md, queue 1 item 9)")
 
 
 class MultiEngine(Engine):
-    """Gas + DM + stars engine (the SmallCosmoVolume and EAGLE volume
-    configurations) on the flat column grid.  ``gravity_fn`` and
-    ``mesh_fn`` take the species list in ``SPECIES`` order
+    """Gas + DM + stars + black holes engine (the SmallCosmoVolume and
+    EAGLE volume configurations) on the flat column grid.  ``gravity_fn``
+    and ``mesh_fn`` take the species list in ``SPECIES`` order
     (``GravitySolver.short_range_accelerations`` and
     ``mesh_accelerations``); ``eps_soft`` is a float or the (baryon, dm)
     pair of the timestep softenings.  ``star_formation``,
     ``entropy_floor``, ``feedback`` and ``enrichment`` are the EAGLE
-    models of ``subgrid``."""
+    models of ``subgrid``; ``bh_model`` is ``subgrid.black_holes``'
+    EagleBlackHoles or DefaultBlackHoles."""
 
     def __init__(self, grid: CellGrid, sph: SPHENIXParams,
                  cfg: EngineConfig, time_begin: float, time_end: float, *,
@@ -566,7 +750,8 @@ class MultiEngine(Engine):
                  star_formation: Optional[EagleStarFormation] = None,
                  entropy_floor=None,
                  feedback: Optional[EagleThermalFeedback] = None,
-                 enrichment: Optional[EagleEnrichment] = None, **refused):
+                 enrichment: Optional[EagleEnrichment] = None,
+                 bh_model=None, **refused):
         unknown = sorted(set(refused) - set(_REFUSED))
         if unknown:
             raise TypeError(f"MultiEngine: unexpected arguments {unknown}")
@@ -574,12 +759,14 @@ class MultiEngine(Engine):
         if bad:
             raise NotImplementedError(
                 f"MultiEngine: {', '.join(bad)} not ported; the port runs "
-                "gas, dark matter and stars with the EAGLE cooling, "
-                "star-formation, feedback and enrichment models "
-                "(ROADMAP.md, queue 1 item 9)")
+                "gas, dark matter, stars and black holes with the EAGLE "
+                "cooling, star-formation, feedback, enrichment and black-hole "
+                "models (ROADMAP.md, queue 1 item 9)")
         _refuse_model("star_formation", star_formation, EagleStarFormation)
         _refuse_model("feedback", feedback, EagleThermalFeedback)
         _refuse_model("enrichment", enrichment, EagleEnrichment)
+        _refuse_model("bh_model", bh_model, EagleBlackHoles,
+                      DefaultBlackHoles)
         if cfg.backend != "flat":
             raise NotImplementedError(
                 f"MultiEngine: backend {cfg.backend!r} not ported; the "
@@ -596,6 +783,7 @@ class MultiEngine(Engine):
                    if star_formation is not None else None)
         self.feedback = feedback
         self.enrichment = enrichment
+        self.bh_model = bh_model
         self.state = {}
         self.n_particles = 0
 
@@ -677,6 +865,40 @@ class MultiEngine(Engine):
                                                mask.shape[1])
         self.n_particles += n
 
+    def load_bh(self, pos, m, v, h=None, pid=None, m_subgrid=None):
+        """Bucket black holes (z-sorted columns; EAGLE bpart: dynamical mass
+        m, subgrid mass m_subgrid (default m), AGN energy reservoir;
+        black_holes_part.h)."""
+        n = len(pos)
+        if pid is None:
+            pid = np.arange(n, dtype=np.int32)
+        if h is None:
+            h = np.full(n, min(self.grid.edge) / 4, np.float32)
+        if m_subgrid is None:
+            m_subgrid = m
+        fields = {"pid": np.asarray(pid, np.int32),
+                  "m": np.asarray(m, np.float32),
+                  "m_subgrid": np.asarray(m_subgrid, np.float32),
+                  "v_full": np.asarray(v, np.float32),
+                  "h": np.asarray(h, np.float32)}
+        out, mask, off, n_over = bucket_fields(
+            self.grid, np.asarray(pos), fields, device=self.device,
+            zsort=True)
+        if int(n_over) != 0:
+            raise RuntimeError(f"{int(n_over)} BH particles overflow K")
+        shape = mask.shape
+
+        def z(*tail):
+            return torch.zeros(shape + tail, dtype=F32, device=self.device)
+        self.state["bh"] = {
+            "mask": mask, "off": off, **out, "a_grav": z(3),
+            "a_grav_mesh": z(3), "pot": z(), "pot_mesh": z(),
+            "time_bin": torch.zeros(shape, dtype=I32, device=self.device),
+            "energy_reservoir": z(), "swallow_prob": z(), "mdot": z(),
+            "rho_gas": z(), "ngb_mass": z(),
+            "drift_accum": torch.zeros((), dtype=F32, device=self.device)}
+        self.n_particles += n
+
     # --- split PM-mesh timestep over every species -----------------------------
     def _mesh_boundary(self):
         ti = self.timeline.ti_current
@@ -717,7 +939,8 @@ class MultiEngine(Engine):
                                       self.gravity_fn, self.eps_soft,
                                       self.cosmo, self.state, T,
                                       self.cooling_fn, self.sf,
-                                      self.feedback, self.enrichment)
+                                      self.feedback, self.enrichment,
+                                      self.bh_model)
         self._post_step(diag)
         self.step_count += 1
         if self.mesh_fn is not None and t.ti_current >= self.ti_mesh_end:
@@ -727,7 +950,7 @@ class MultiEngine(Engine):
     # --- automatic re-gridding over every species ------------------------------
     def _grid_reach(self, h_reach: float = 0.0) -> float:
         reach = float(self.cfg.p2p_reach)
-        for name in ("gas", "stars"):
+        for name in ("gas", "stars", "bh"):
             sp = self.state.get(name)
             if sp is None:
                 continue

@@ -1,7 +1,7 @@
-"""The EAGLE volume on the port, without black holes.
+"""The EAGLE volume on the port, with or without its black hole.
 
     python -m swift_subtask_dev_tpu_torch.examples.eagle_volume
-        [--n 64] [--L 25] [--z 9] [--steps 16] [--cpu]
+        [--n 64] [--L 25] [--z 9] [--steps 16] [--black-holes] [--cpu]
 
 The reference's ``examples/eagle_volume`` (the analog of SWIFT's
 examples/EAGLE_low_z/EAGLE_25): ``make_ics.py``'s gas + DM + stars volume
@@ -16,8 +16,15 @@ cosmology, a_begin 0.1, a_end 1; dt_max 0.01; resolution_eta 1.2348,
 CFL 0.1, minimal internal energy 1; mesh_side_length 64, eta 0.025,
 comoving_baryon_softening 0.06, split mesh kicks; and its EAGLE
 sections.  ``Scheduler:cell_extra_sparts`` is absent, so the stars keep
-8 free slots a column beyond the grid's capacity.  The seed black hole
-of ``make_ics.py`` is left out: ``--black-holes`` is not ported.
+8 free slots a column beyond the grid's capacity.
+
+With ``--black-holes`` it is ``swift-tpu run.yml --eagle --black-holes``
+(the reference's ``examples/eagle_volume/run.sh``): ``make_ics.py``'s
+seed black hole at the box centre, loaded as the CLI loads it (h the
+median of the gas's, the subgrid mass its mass; ``cli.py:962-974``), and
+the EAGLE black holes of run.yml's EAGLEAGN section (``cli.py:341-356``):
+Bondi accretion, gas swallowing, AGN heating, repositioning and BH-BH
+mergers, the last two on by the section's defaults.
 
 The one cut: EAGLE_25 has 2 x 376^3 particles and its IC file is a
 download; the default here is ``--n 64 --L 25 --z 9`` (256,902 gas,
@@ -44,6 +51,7 @@ from ..ics import eagle_volume_ic
 from ..models.cosmology import Cosmology
 from ..models.gravity import GravityParams, GravitySolver
 from ..models.sph.sphenix import SPHENIXParams
+from ..subgrid.black_holes import EagleBlackHoles
 from ..subgrid.chemistry import EagleChemistry
 from ..subgrid.eagle_cooling import EagleCooling, make_eagle_cooling_fn
 from ..subgrid.enrichment import EagleEnrichment
@@ -83,6 +91,11 @@ RUN_YML = {
         "threshold_norm_H_p_cm3": 0.1, "threshold_Z0": 0.002,
         "threshold_slope": -0.64, "threshold_max_density_H_p_cm3": 10.0,
         "EOS_entropy_margin_dex": 0.5},
+    "EAGLEAGN": {
+        "subgrid_seed_mass_Msun": 1.5e5, "seed_halo_mass_Msun": 1.0e10,
+        "radiative_efficiency": 0.1, "coupling_efficiency": 0.15,
+        "AGN_delta_T_K": 3.16228e8, "AGN_num_ngb_to_heat": 1.0,
+        "max_eddington_fraction": 1.0},
     "EAGLEFeedback": {
         "SNII_energy_erg": 1.0e51, "SNII_energy_fraction": 1.0,
         "SNII_delta_T_K_log10": 7.5, "SNII_delay": 0.03,
@@ -123,12 +136,14 @@ def build_models(params: Params, units, cosmology: Cosmology):
 
 
 def make_engine(n: int = N_SIDE, L: float = BOX, device="cuda", ic=None,
-                z: float = Z_START):
+                z: float = Z_START, black_holes: bool = False):
     """The run's ICs, parameters, grid, solver and engine, particles
-    loaded.  Returns (engine, solver, ic)."""
-    ic = ic if ic is not None else eagle_volume_ic(n=n, L=L, z=z,
-                                                   star_frac=STAR_FRAC,
-                                                   seed=SEED)
+    loaded; with ``black_holes`` the EAGLE black holes and the ICs' BHs
+    (the seed black hole when the ICs are made here).  Returns (engine,
+    solver, ic)."""
+    ic = ic if ic is not None else eagle_volume_ic(
+        n=n, L=L, z=z, star_frac=STAR_FRAC, seed=SEED,
+        black_hole=black_holes)
     gas, dm, stars = ic["gas"], ic["dm"], ic["stars"]
     box = tuple(ic["box"])
     params = Params(RUN_YML)
@@ -151,6 +166,9 @@ def make_engine(n: int = N_SIDE, L: float = BOX, device="cuda", ic=None,
         eta=params.get_float("Gravity", "eta"))
     cooling_fn, sf, floor, feedback, enrichment = build_models(
         params, units, cosmology)
+    bh_model = (EagleBlackHoles.from_params(params, units, pc,
+                                            pc.const_newton_G)
+                if black_holes else None)
 
     h0 = np.asarray(gas["h"], np.float32)
     pos_all = np.concatenate([gas["pos"], dm["pos"], stars["pos"]])
@@ -166,15 +184,16 @@ def make_engine(n: int = N_SIDE, L: float = BOX, device="cuda", ic=None,
         eta_grav=gp.eta, eps_soft=gp.eps, p2p_reach=solver.pm.r_cut,
         backend="flat")
     eps_dm = gp.eps_dm or gp.eps
-    # per-species softenings in the engine's species order (gas, dm, stars)
-    solver.eps_per_species = [gp.eps, eps_dm, gp.eps]
+    # per-species softenings in the engine's species order (gas, dm,
+    # stars, bh)
+    solver.eps_per_species = [gp.eps, eps_dm, gp.eps, gp.eps]
     eng = MultiEngine(grid, sph, cfg, cosmology.a_begin, cosmology.a_end,
                       device=device,
                       gravity_fn=solver.short_range_accelerations,
                       eps_soft=(gp.eps, eps_dm), cosmology=cosmology,
                       cooling_fn=cooling_fn, star_formation=sf,
                       entropy_floor=floor, feedback=feedback,
-                      enrichment=enrichment,
+                      enrichment=enrichment, bh_model=bh_model,
                       mesh_fn=solver.mesh_accelerations,
                       mesh_dt_scale=solver.pm.r_s)
 
@@ -191,6 +210,12 @@ def make_engine(n: int = N_SIDE, L: float = BOX, device="cuda", ic=None,
     eng.load_dm(dm["pos"], dm["m"], dm["v"], pid=dm["pid"].astype(np.int32))
     eng.load_stars(stars["pos"], stars["m"], stars["v"],
                    pid=stars["pid"].astype(np.int32))
+    if black_holes and "bh" in ic:
+        bh = ic["bh"]
+        eng.load_bh(bh["pos"], bh["m"], bh["v"],
+                    h=np.full(len(bh["pos"]), float(np.median(h0)),
+                              np.float32),
+                    pid=bh["pid"].astype(np.int32), m_subgrid=bh["m"])
     return eng, solver, ic
 
 
@@ -216,18 +241,22 @@ def main(argv=None) -> int:
     ap.add_argument("--z", type=float, default=Z_START,
                     help="start redshift")
     ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--black-holes", action="store_true",
+                    help="the seed black hole and EAGLE's BH model")
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args(argv)
     if not args.cpu and not torch.cuda.is_available():
         print("no CUDA device (use --cpu)", file=sys.stderr)
         return 1
     device = torch.device("cpu" if args.cpu else "cuda")
-    eng, _, _ = make_engine(args.n, args.L, device, z=args.z)
+    eng, _, _ = make_engine(args.n, args.L, device, z=args.z,
+                            black_holes=args.black_holes)
     print(f"{eng.n_particles} particles, box {args.L:.4f} Mpc, grid "
           f"cdim={list(eng.grid.cdim)} K={eng.grid.K}")
     t0 = time.perf_counter()
     eng.init_particles()
-    seen = {"n_heated": 0, "n_converted": 0, "n_lost": 0}
+    seen = {k: 0 for k in ("n_heated", "n_converted", "n_lost",
+                           "n_swallowed", "n_agn", "n_bh_merged")}
 
     def on_step(diag):
         for k in seen:

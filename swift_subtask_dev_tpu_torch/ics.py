@@ -138,14 +138,17 @@ def small_cosmo_volume_ic(n: int = 16, L: float = 25.0, z: float = 9.0,
 # ---------------------------------------------------------------------------
 
 def eagle_volume_ic(n: int = 16, L: float = 25.0, z: float = 9.0,
-                    star_frac: float = 0.02, seed: int = 42):
-    """The EAGLE volume's gas + DM + stars initial conditions
-    (``examples/eagle_volume/make_ics.py`` without its HDF5 file and
-    without the seed black hole): the SmallCosmoVolume arrays, with
-    max(1, int(star_frac n^3)) gas sites, drawn by
-    ``default_rng(seed).choice`` without replacement, carved out as star
-    particles (id = gas id + 2 n^3, the gas's mass and velocity).
-    Returns the dict of ``small_cosmo_volume_ic`` with a "stars" entry."""
+                    star_frac: float = 0.02, seed: int = 42,
+                    black_hole: bool = False):
+    """The EAGLE volume's initial conditions
+    (``examples/eagle_volume/make_ics.py`` without its HDF5 file): the
+    SmallCosmoVolume arrays, with max(1, int(star_frac n^3)) gas sites,
+    drawn by ``default_rng(seed).choice`` without replacement, carved out
+    as star particles (id = gas id + 2 n^3, the gas's mass and velocity);
+    with ``black_hole``, the file's seed black hole at the box centre (at
+    rest, the stars' mean mass, id = the largest star id + 1).  Returns
+    the dict of ``small_cosmo_volume_ic`` with a "stars" entry (and a
+    "bh" entry)."""
     ic = small_cosmo_volume_ic(n=n, L=L, z=z)
     gas = ic["gas"]
     N = len(gas["pos"])
@@ -157,4 +160,10 @@ def eagle_volume_ic(n: int = 16, L: float = 25.0, z: float = 9.0,
                    "m": gas["m"][star_idx],
                    "pid": gas["pid"][star_idx] + 2 * N}
     ic["gas"] = {k: v[keep] for k, v in gas.items()}
+    if black_hole:
+        st = ic["stars"]
+        ic["bh"] = {"pos": np.asarray([[L / 2, L / 2, L / 2]]),
+                    "v": np.zeros((1, 3), np.float32),
+                    "m": np.asarray([st["m"].mean()], np.float32),
+                    "pid": np.asarray([int(st["pid"].max()) + 1], np.int64)}
     return ic

@@ -30,6 +30,8 @@ def multi_state_from_reference(state: Dict[str, Dict[str, np.ndarray]],
     """A reference ``MultiEngine.state`` ({species: state}) carried across
     species by species, as ``state_from_reference``: every field of each
     species, the stars' (birth_time, birth_density, fb_done, m_init, Z,
-    elem_frac (C, K, 9)) and the gas's chemistry carriers included."""
+    elem_frac (C, K, 9)), the black holes' (m_subgrid, energy_reservoir,
+    swallow_prob, mdot, rho_gas, ngb_mass) and the gas's chemistry
+    carriers included."""
     return {name: state_from_reference(sp, device)
             for name, sp in state.items()}

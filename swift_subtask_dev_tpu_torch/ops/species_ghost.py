@@ -29,12 +29,15 @@ HYDRO_DIM = 3.0
 
 
 def species_wcount_loop(grid, s_i: Dict, gas_s: Dict, p,
-                        sel: Optional[torch.Tensor] = None):
+                        sel: Optional[torch.Tensor] = None,
+                        packed: bool = False):
     """Raw neighbour-count sums of a non-gas species over gas: (wsum,
     wdh_sum), the unnormalised sum w(u) and sum -(3 w + u w') over gas
     neighbours within gamma h_i (stars_iact.h
     runner_iact_nonsym_stars_density), (C, K_i) each.  ``sel`` limits the
-    i slots summed (the others read 0); by default every live slot."""
+    i slots summed (the others read 0); by default every live slot.
+    ``packed``: the 27 offsets as one j axis (``stencil._stencil_walk``;
+    for a species of few particles, the black holes)."""
     gamma2 = float(np.float32(p.kernel.gamma2))
     h = _sanitize(s_i["mask"], s_i["h"])
     if sel is None:
@@ -51,20 +54,21 @@ def species_wcount_loop(grid, s_i: Dict, gas_s: Dict, p,
             -torch.sum(torch.where(ok, kick, 0.0), -1, keepdim=True)], -1)
 
     out = _stencil_pairs(grid, {"off": s_i["off"], "hinv": 1.0 / h}, sel,
-                         {"off": gas_s["off"]}, gas_s["mask"] > 0, acc, 2)
+                         {"off": gas_s["off"]}, gas_s["mask"] > 0, acc, 2,
+                         packed)
     return out[..., 0] * s_i["mask"], out[..., 1] * s_i["mask"]
 
 
 def species_h_iterate(grid, s_i: Dict, gas_s: Dict, p,
                       active: torch.Tensor, max_iter: int = 10,
                       eta: Optional[float] = None, h_min: float = 0.0,
-                      h_max: Optional[float] = None):
+                      h_max: Optional[float] = None, packed: bool = False):
     """Iterate the species' h to the neighbour target over gas.
 
     Returns (h_new (C, K_i), wcount (C, K_i), n_iter).  Only ``active``
     slots are updated, warm-started from s_i["h"]; ``wcount`` is the
     normalised sum of W(r, h) h^-3 at the final h of the active slots (0
-    elsewhere)."""
+    elsewhere).  ``packed`` as ``species_wcount_loop``'s."""
     eta_dim = float(eta) ** 3 if eta is not None else p.eta_dim
     pp = SimpleNamespace(eta_dim=eta_dim, h_tolerance=p.h_tolerance,
                          h_min=h_min,
@@ -75,7 +79,7 @@ def species_h_iterate(grid, s_i: Dict, gas_s: Dict, p,
 
     def wpass(h, sel):
         wsum, wdh = species_wcount_loop(grid, {**s_i, "h": h}, gas_s, p,
-                                        sel=sel)
+                                        sel=sel, packed=packed)
         # stars_end_density: no kernel_root self term
         hs = torch.where(live, h, 1.0)
         hs2 = hs * hs

@@ -16,9 +16,11 @@ the result.  Here each loop gathers the slots that can be accepted (live
 ones; on the j side also only those whose own flag the pair test needs,
 such as a star with energy to inject) to the front of each cell first,
 and walks the 27 offsets one at a time over chunks of cells
-(``_stencil_pairs``), so that a (cells, i, j) tile of live slots is all
-that is ever built: exact, because a pair outside these sets is masked
-out in the reference.  The separation is the reference's:
+(``_stencil_walk``: a sum, ``_stencil_pairs``, or a fold such as the
+black holes' selections; ``packed`` walks the offsets as one j axis), so
+that a (cells, i, j) tile of live slots is all that is ever built:
+exact, because a pair outside these sets is masked out in the
+reference.  The separation is the reference's:
 ``off_i - (off_j + f32(d * edge))``.  The stencil's density, gradient and
 force loops (the ``xla`` backend) are not ported; on the flat backend
 chemistry smoothing runs on the flat pair kernel
@@ -162,46 +164,84 @@ def _stencil_table(grid, device):
             torch.as_tensor(shift, device=device))
 
 
-def _stencil_pairs(grid, fi: Dict[str, torch.Tensor], sel_i: torch.Tensor,
-                   fj: Dict[str, torch.Tensor], sel_j: torch.Tensor,
-                   accumulate: Callable, n_out: int) -> torch.Tensor:
-    """Sum ``accumulate`` over every (i, j) pair of the 27-cell stencil
-    with i among ``sel_i`` and j among ``sel_j`` ((C, K_i), (C, K_j)
-    bool).  ``fi``/``fj`` hold (C, K, ...) fields, "off" (C, K, 3) among
-    them.  ``accumulate(gi, gj, dx, r2)`` gets the i fields (n, Ki, 1
-    [, ...]), the j fields (n, 1, Kj [, ...]), the separation (three
-    (n, Ki, Kj) tensors, off_i - (off_j + shift)) and r2, and returns an
-    (n, Ki, n_out) f32 sum over its j.  Returns (C, K_i, n_out): the sums
-    of the selected i slots, 0 elsewhere."""
+def _stencil_walk(grid, fi: Dict[str, torch.Tensor], sel_i: torch.Tensor,
+                  fj: Dict[str, torch.Tensor], sel_j: torch.Tensor,
+                  step: Callable, init, packed: bool = False) -> tuple:
+    """Fold ``step`` over the 27 stencil offsets, in ``STENCIL_27`` order,
+    for every i among ``sel_i`` against the j among ``sel_j`` ((C, K_i),
+    (C, K_j) bool).  ``fi``/``fj`` hold (C, K, ...) fields, "off"
+    (C, K, 3) among them.  ``init`` names the accumulators: a tuple of
+    (fill, dtype, tail shape).  ``step(acc, gi, gj, dx, r2)`` gets the
+    accumulators ((n, Ki, *tail) each), the i fields (n, Ki, 1 [, ...]),
+    the j fields (n, 1, Kj [, ...]; "_valid" marks the selected j), the
+    separation (three (n, Ki, Kj) tensors, off_i - (off_j + shift)) and
+    r2, and returns the new accumulators.  Within an offset the j are in
+    slot order.  ``packed`` walks the 27 offsets as one j axis, offset
+    after offset (the reference's packed stencil: 27 times fewer, larger
+    tensor operations, for loops with few i); a fold's ties then still go
+    to the earlier offset and slot, and sums are in another order.
+    Returns the accumulators, (C, K_i, *tail) each: the folds of the
+    selected i slots, ``fill`` elsewhere."""
     dev = sel_i.device
     C, K_i = sel_i.shape
-    out = torch.zeros((C, K_i, n_out), dtype=F32, device=dev)
+
+    def full(shape, spec):
+        fill, dtype, tail = spec
+        return torch.full(shape + tuple(tail), fill, dtype=dtype,
+                          device=dev)
+
+    outs = tuple(full((C, K_i), spec) for spec in init)
     oi, vi = _front(sel_i)
     oj, vj = _front(sel_j)
     Ki, Kj = oi.shape[1], oj.shape[1]
     if Ki == 0 or Kj == 0:
-        return out
+        return outs
     gi_all = {k: _take(v, oi) for k, v in fi.items()}
     gj_all = {k: _take(v, oj) for k, v in fj.items()}
     gj_all["_valid"] = vj
     nbr, shift = _stencil_table(grid, dev)
-    nc = max(1, _PAIRS_PER_CHUNK.get(dev.type, 1 << 21) // (Ki * Kj))
-    acc_all = torch.zeros((C, Ki, n_out), dtype=F32, device=dev)
+    groups = [list(range(27))] if packed else [[o] for o in range(27)]
+    G = len(groups[0])
+    nc = max(1, _PAIRS_PER_CHUNK.get(dev.type, 1 << 21) // (Ki * Kj * G))
+    acc_all = tuple(full((C, Ki), spec) for spec in init)
     for c0 in range(0, C, nc):
         cells = slice(c0, min(c0 + nc, C))
         gi = {k: v[cells][:, :, None] for k, v in gi_all.items()}
-        acc = torch.zeros((gi["off"].shape[0], Ki, n_out), dtype=F32,
-                          device=dev)
-        for o in range(27):
-            cj = nbr[cells, o]
-            gj = {k: v[cj][:, None] for k, v in gj_all.items()}
-            off_j = gj["off"] + shift[o]
+        n = gi["off"].shape[0]
+        acc = tuple(full((n, Ki), spec) for spec in init)
+        for group in groups:
+            cj = nbr[cells][:, group]                       # (n, G)
+            gj = {k: v[cj].reshape((n, 1, G * Kj) + tuple(v.shape[2:]))
+                  for k, v in gj_all.items()}
+            off_j = (gj_all["off"][cj] + shift[group][None, :, None, :]
+                     ).reshape(n, 1, G * Kj, 3)
             dx = [gi["off"][..., a] - off_j[..., a] for a in range(3)]
             r2 = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2]
-            acc = acc + accumulate(gi, gj, dx, r2)
-        acc_all[cells] = acc
-    acc_all = torch.where(vi[..., None], acc_all, 0.0)
-    return out.scatter(1, oi[..., None].expand(-1, -1, n_out), acc_all)
+            acc = step(acc, gi, gj, dx, r2)
+        for a_all, a in zip(acc_all, acc):
+            a_all[cells] = a
+    result = []
+    for out, a_all, (fill, _, tail) in zip(outs, acc_all, init):
+        sel = vi.reshape(vi.shape + (1,) * len(tail))
+        idx = oi.reshape(oi.shape + (1,) * len(tail)).expand(a_all.shape)
+        result.append(out.scatter(1, idx, torch.where(sel, a_all, fill)))
+    return tuple(result)
+
+
+def _stencil_pairs(grid, fi: Dict[str, torch.Tensor], sel_i: torch.Tensor,
+                   fj: Dict[str, torch.Tensor], sel_j: torch.Tensor,
+                   accumulate: Callable, n_out: int,
+                   packed: bool = False) -> torch.Tensor:
+    """Sum ``accumulate`` over every (i, j) pair of the 27-cell stencil
+    (``_stencil_walk`` with one sum): ``accumulate(gi, gj, dx, r2)``
+    returns an (n, Ki, n_out) f32 sum over its j.  Returns (C, K_i,
+    n_out): the sums of the selected i slots, 0 elsewhere."""
+
+    def step(acc, gi, gj, dx, r2):
+        return (acc[0] + accumulate(gi, gj, dx, r2),)
+
+    return _stencil_walk(grid, fi, sel_i, fj, sel_j, step,
+                         ((0.0, F32, (n_out,)),), packed)[0]
 
 
 def _masked_sum(ok, val):

@@ -34,6 +34,9 @@ class Params:
     def get_float(self, section: str, name: str) -> float:
         return float(self._get(section, name))
 
+    def get_string(self, section: str, name: str) -> str:
+        return str(self._get(section, name))
+
     def opt_int(self, section: str, name: str, default: int) -> int:
         try:
             return self.get_int(section, name)
@@ -43,6 +46,12 @@ class Params:
     def opt_float(self, section: str, name: str, default: float) -> float:
         try:
             return self.get_float(section, name)
+        except ParamError:
+            return default
+
+    def opt_string(self, section: str, name: str, default: str) -> str:
+        try:
+            return self.get_string(section, name)
         except ParamError:
             return default
 

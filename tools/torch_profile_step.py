@@ -2,7 +2,8 @@
 """Where the time goes in the PyTorch/CUDA port, on one GPU.
 
     python3 tools/torch_profile_step.py
-        [--path main|sedov-a|sedov-c|cosmo|dmo|eagle] [--out PATH]
+        [--path main|sedov-a|sedov-c|cosmo|dmo|eagle|eagle-bh]
+        [--out PATH]
 
 ``--path main`` (the default) runs bench.py's default geometry (2*80^3 =
 1,024,000 particles, SPHENIX + P3M on the flat column grid, mesh_N =
@@ -48,16 +49,20 @@ example: 2*64^3 = 524,288 gas + DM particles in 100 Mpc/h, comoving,
 split mesh, constant-Lambda cooling, the multi engine), ``--path eagle``
 its EAGLE volume (the port's example: 256,902 gas, 262,144 DM and 5,242
 stars in 25 Mpc, EAGLE cooling, chemistry, star formation, feedback and
-enrichment, the limiter) and ``--path dmo`` bench.py's BENCH_MODE=dmo
+enrichment, the limiter), ``--path eagle-bh`` that volume with its seed
+black hole (``--black-holes``: the BH's ghost, density, reposition,
+accretion, swallow, AGN and merger loops; 16 P2P launches a step) and
+``--path dmo`` bench.py's BENCH_MODE=dmo
 geometry (1,024,000 particles, mesh_N = 192, DMEngine):
 init_particles() and a warm-up window, then (1) steady: three windows,
 ms per step; (2) trace over a window, as above, with K1's one-species and
 cross-species P2P launches per step; (3) phases over a window (ghost,
 density, gradient, force, P2P gravity, timebin and chemistry loops,
 rebucket check, cooling, the gas and collisionless kicks, the mesh
-update; the EAGLE layers: the stars' ghost, feedback and enrichment with
-their star loops, star formation; inside them ``pair_flat.prepare`` and
-the kernel launch), ms per step.  A DMO window is 8 steps of one engine;
+update; the EAGLE layers: the stars' ghost (with the BHs' ghost on
+``eagle-bh``), feedback and enrichment with their star loops, star
+formation, the BH block; inside them ``pair_flat.prepare`` and the
+kernel launch), ms per step.  A DMO window is 8 steps of one engine;
 the volumes reach a = 1 in ~13-14 steps, so each of their windows is a
 whole run() of a fresh engine after its init_particles() (the EAGLE
 volume's at most chip_smoke.py's EAGLE_STEPS).
@@ -96,7 +101,8 @@ BODIES = ("Density", "Gradient", "ForceGravity", "Force", "P2PGravity",
 SEDOV_PATHS = {"sedov-a": ("pallas", False, pair_packed),
                "sedov-c": ("pallas_ring", True, pair_ring)}
 SEDOV_N, SEDOV_T_END, SEDOV_T_WARM = 51, 0.05, 0.025
-GRAVITY_PATHS = ("cosmo", "dmo", "eagle")
+GRAVITY_PATHS = ("cosmo", "dmo", "eagle", "eagle-bh")
+VOLUMES = ("cosmo", "eagle", "eagle-bh")
 
 
 def pair_body(kernel_name: str):
@@ -337,6 +343,7 @@ def gravity_phases(eng, n_steps):
         pt.wrap(stencil, name, name)
     pt.wrap(engine_multi, "_feedback", "feedback")
     pt.wrap(engine_multi, "_enrich", "enrichment")
+    pt.wrap(engine_multi, "_black_holes", "black_holes")
     pt.wrap(EagleStarFormation, "conversion_mask", "star_formation")
     pt.wrap(engine_multi, "_convert_gas_to_stars", "star_formation")
     pt.wrap(engine_multi, "_mesh_update_multi", "mesh_update")
@@ -366,11 +373,14 @@ def gravity_profile(path, card, device, n_steps=8):
     pair_flat.LIBRARY.load()
 
     def build():
-        if path in ("cosmo", "eagle"):
+        if path in VOLUMES:
             from swift_subtask_dev_tpu_torch.examples import (
                 eagle_volume, small_cosmo_volume)
-            ex = eagle_volume if path == "eagle" else small_cosmo_volume
-            e = ex.make_engine(device=device)[0]
+            if path == "cosmo":
+                e = small_cosmo_volume.make_engine(device=device)[0]
+            else:
+                e = eagle_volume.make_engine(
+                    device=device, black_holes=path == "eagle-bh")[0]
             return e, sum(int((sp["mask"] > 0).sum())
                           for sp in e.state.values())
         return dmo_engine(device)
@@ -381,7 +391,8 @@ def gravity_profile(path, card, device, n_steps=8):
            "cdim": list(eng.grid.cdim), "K": eng.grid.K,
            "chip_smoke_steps": {"cosmo": chip_smoke.COSMO_STEPS,
                                 "dmo": chip_smoke.DMO_STEPS,
-                                "eagle": chip_smoke.EAGLE_STEPS}[path]}
+                                "eagle": chip_smoke.EAGLE_STEPS,
+                                "eagle-bh": chip_smoke.EAGLE_STEPS}[path]}
     torch.cuda.reset_peak_memory_stats()
     t0 = sync_s()
     eng.init_particles()
@@ -393,12 +404,12 @@ def gravity_profile(path, card, device, n_steps=8):
     def window(e, on_step=None):
         """One window's steps (counted); a volume's: a fresh engine (the
         EAGLE volume's at most chip_smoke's EAGLE_STEPS)."""
-        if path in ("cosmo", "eagle"):
+        if path in VOLUMES:
             if e is None:
                 e = build()[0]
                 e.init_particles()
                 torch.cuda.synchronize()
-            most = res["chip_smoke_steps"] if path == "eagle" else 10 ** 9
+            most = res["chip_smoke_steps"] if path != "cosmo" else 10 ** 9
             return e, lambda: e.run(max_steps=most, on_step=on_step)
         return e, lambda: e.run(max_steps=n_steps, on_step=on_step)
 
@@ -441,8 +452,8 @@ def gravity_profile(path, card, device, n_steps=8):
     print("trace", json.dumps(tr), flush=True)
     e, _ = window(None if path != "dmo" else eng)
     res["phases"] = gravity_phases(
-        e, {"cosmo": None, "eagle": res["chip_smoke_steps"]}.get(path,
-                                                                  n_steps))
+        e, None if path == "cosmo" else res["chip_smoke_steps"]
+        if path in VOLUMES else n_steps)
     print("phases", json.dumps(res["phases"]), flush=True)
     return res
 
