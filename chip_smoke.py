@@ -8,7 +8,9 @@ Phases (any failure ends the script with a non-zero exit and no result):
 1. Card: require a CUDA device; print its name and power limit
    (nvidia-smi) and the torch/CUDA versions.
 2. Build: compile the flat pair kernel (csrc/pair_flat.cu, with the cost
-   probe's bodies), the packed 27-cell pair kernel (csrc/pair_packed.cu),
+   probe's bodies, and once more for each of its 29 SPH modes: a scheme
+   under a smoothing kernel), the packed 27-cell pair kernel
+   (csrc/pair_packed.cu),
    the ring-buffer 27-cell pair kernel (csrc/pair_ring.cu; both on the
    walk of csrc/walk27.cuh) and the FP32 probe (csrc/vpu_peak.cu) with
    nvcc into build/, one nvcc process each, started together, and load
@@ -140,12 +142,38 @@ Phases (any failure ends the script with a non-zero exit and no result):
    jump events x delta_u exactly; no swallowed particle became a star;
    K1's density on the compacted gas near the BHs against the float64
    brute force (1e-4).
-13. Prints {"kernels": [...]} (each kernel's launches on its path, errors,
+13. K1's SPH modes on the main path: bench.py's geometry (1,024,000
+   particles, P3M, split mesh) under each of SCHEME_RUNS (Minimal,
+   Gadget2 and Pressure-Energy with the cubic spline, Anarchy-PU with
+   Wendland C2), init_particles() + run_fixed_dt(SCHEME_STEPS) with the
+   launch counters reset just before: ms per step, finite state, total
+   mass unchanged, every body of the mode launched, the float64
+   brute-force density of 1,024 particles (<= 1e-4; the kernel's own
+   polynomial) and, for the pressure-energy schemes, the smoothed
+   pressure of a fresh density pass (<= 1e-4); each body (density,
+   gradient where the scheme has one, force, force + gravity) against
+   its plain version (phase 3's tolerances, hold_walk).
+14. The Sod shock (the port's examples/sodshock.py, flat backend, n =
+   SOD_N = 64: 147,456 particles, to t = 0.2) for each scheme with the
+   cubic spline and Anarchy-PU with Wendland C2: steps, ms per step,
+   L1(rho)/mean, L1(vx), energy drift; L1(rho) no larger than the
+   reference's own at n = 32 (SOD_REFERENCE_L1); finite state, mass
+   unchanged, every body launched, each held against its plain version
+   on the final state (each slot's sums within (2 n + 8) 2^-24 of its
+   sum_j |term_j|, n its pairs: the f32 sums' rounding bound, ``compare``;
+   maxes as phase 3: the tube's transverse sums cancel to ~0), with
+   force + gravity where no earlier phase holds that mode's.  Then each
+   scheme's cubic-spline Sod at SOD_HOLD_N = 48 to t = 0.2, and each
+   scheme under each of the five other kernels on its final state: the
+   particles on a column grid for the kernel, init_particles() (every
+   body launched), each body and force + gravity held the same way.
+15. Prints {"kernels": [...]} (each kernel's launches on its path, errors,
    times, and its bound: the larger of the bytes it must move -- the
    particles' fields it reads, the output slots it writes and the index
    words it reads -- over 3.35 TB/s and its FP32 operations on the run's
-   true pairs over 67 TFLOP/s; K2's and K3's at the final state) and, as
-   the last line, the result object.
+   true pairs over 67 TFLOP/s; K2's and K3's at the final state; one
+   entry per K1 mode and body, from the first path that held it) and,
+   as the last line, the result object.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -188,6 +216,35 @@ SEDOV_T_END = 0.05
 # H100 SXM published peaks (NVIDIA's data sheet, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+# the SPH modes phase 13 drives on the main path (SPH:scheme, SPH:kernel)
+SCHEME_RUNS = (("minimal", "cubic-spline"), ("gadget2", "cubic-spline"),
+               ("pressure-energy", "cubic-spline"),
+               ("anarchy-pu", "wendland-C2"))
+SCHEME_STEPS = 8
+# phase 14: the Sod shock at SOD_N (the reference example's default) to
+# SOD_T_END for each scheme with the cubic spline and Anarchy-PU with
+# Wendland C2; every other mode (scheme and kernel) on the developed state
+# of its scheme's cubic-spline Sod at SOD_HOLD_N.  At SOD_N those holds
+# took 677 s of the card (the plain versions are dense over a column's
+# rows: their cost grows as n^4), which with the rest of the script comes
+# near its 1,200 s limit; at 48 they take ~0.3 of that.
+SOD_N = 64              # 147,456 particles
+SOD_HOLD_N = 48         # 62,208 particles
+SOD_T_END = 0.2
+SOD_RUNS = (("sphenix", "cubic-spline"), ("minimal", "cubic-spline"),
+            ("gadget2", "cubic-spline"), ("pressure-energy", "cubic-spline"),
+            ("anarchy-pu", "cubic-spline"), ("anarchy-pu", "wendland-C2"))
+# The reference's own L1(rho)/mean at n = 32, t = 0.2, per (scheme,
+# kernel), measured once by tools/sod_reference_l1.py (the JAX package's
+# engine, flat backend on the column grid, on a CPU); phase 14's runs at
+# n = 64 must not exceed them
+SOD_REFERENCE_L1 = {
+    ("sphenix", "cubic-spline"): 0.021402254045508138,
+    ("minimal", "cubic-spline"): 0.020912282075643485,
+    ("gadget2", "cubic-spline"): 0.02202661753953336,
+    ("pressure-energy", "cubic-spline"): 0.018364279939943665,
+    ("anarchy-pu", "cubic-spline"): 0.019490807267347223,
+    ("anarchy-pu", "wendland-C2"): 0.02535542262843186}
 # FP32 operations per accepted pair of each body, counted from
 # csrc/pair_bodies.cuh: each add, multiply, compare, select, min/max,
 # divide, sqrt, rsqrt and exp counts one; the separation and r2, the
@@ -202,6 +259,36 @@ OPS_PER_PAIR = {"density": 78, "gradient": 63, "force": 167,
                 # sum, plus each body's own
                 "probe_a00": 18, "probe_a": 18, "probe_b": 26,
                 "probe_c": 131, "probe_d": 37, "probe_e": 39}
+# K1's SPH modes, from the counts above (SPHENIX, cubic spline): a kernel's
+# deval in place of the cubic spline's 17 (x = u gamma_inv and the two
+# normalisations, 3; a truncated-power term of degree d, d + 3, and 2 to
+# add each further term; a Wendland branch of N coefficients, 4 (N - 1)
+# for Horner and 5 for the clamps), once in density and gradient, twice
+# in the force bodies; a scheme's force terms in place of SPHENIX's 62
+# (beyond the kinematics both share); the pressure-energy density's u_j
+# sums, 6 more
+DEVAL_OPS = {"cubic-spline": 17, "quartic-spline": 28,
+             "quintic-spline": 31, "wendland-C2": 28, "wendland-C4": 40,
+             "wendland-C6": 52}
+FORCE_SCHEME_OPS = {"sphenix": 62, "minimal": 31, "gadget2": 20,
+                    "pressure-energy": 44, "anarchy-pu": 59}
+
+
+def ops_per_pair(body):
+    """FP32 operations per accepted pair of ``body`` in its mode."""
+    from swift_subtask_dev_tpu_torch.models.sph import SCHEME_MODULES
+    if not body.mode:
+        return OPS_PER_PAIR[body.name]
+    scheme, kernel = body.mode.split("/")
+    dk = DEVAL_OPS[kernel] - DEVAL_OPS["cubic-spline"]
+    base = OPS_PER_PAIR[body.name]
+    if body.name == "density":
+        return base + dk + (6 if SCHEME_MODULES[scheme].DENSITY_NEEDS_U
+                            else 0)
+    if body.name == "gradient":
+        return base + dk
+    return base + 2 * dk + FORCE_SCHEME_OPS[scheme] \
+        - FORCE_SCHEME_OPS["sphenix"]
 
 
 class PhaseFailed(RuntimeError):
@@ -230,19 +317,35 @@ def phase_card():
     return card
 
 
-# the flat kernel's body structs (csrc/pair_bodies.cuh, probe_bodies.cuh)
-FLAT_STRUCTS = {"Density": "density", "Gradient": "gradient",
-                "Force": "force", "ForceGravity": "force_gravity",
+# the flat kernel's body structs (csrc/pair_bodies.cuh, probe_bodies.cuh;
+# the SPH bodies are templates over the scheme and the kernel)
+FLAT_STRUCTS = {"DensityT": "density", "GradientT": "gradient",
+                "ForceT": "force", "ForceGravityT": "force_gravity",
                 "P2PGravity": "p2p_gravity", "Timebin": "timebin",
                 "ProbeA00": "probe_a00", "ProbeA": "probe_a",
                 "ProbeB": "probe_b", "ProbeC": "probe_c",
                 "ProbeD": "probe_d", "ProbeE": "probe_e"}
 
 
+def _skip_template_args(rest, i):
+    """Past a mangled template argument list I<len><name>...E at i."""
+    import re
+    if not rest[i:].startswith("I"):
+        return i
+    i += 1
+    while i < len(rest) and rest[i] != "E":
+        d = re.match(r"\d+", rest[i:])
+        if d is None:
+            return i
+        i += len(d.group(0)) + int(d.group(0))
+    return i + 1
+
+
 def ptxas_spills(log):
-    """{body name: ptxas's stack/spill line} of the flat kernel's
-    production instantiations (a mangled name holds the body and the
-    statistics flag: pair_flat_kernelI<length><struct>Lb0)."""
+    """{body name: ptxas's stack/spill line} of one flat kernel library's
+    production instantiations (a mangled name holds the body, its
+    template arguments and the statistics flag:
+    pair_flat_kernelI<length><struct>[I...E]Lb0)."""
     import re
     out, body = {}, None
     for line in log.splitlines():
@@ -253,7 +356,7 @@ def ptxas_spills(log):
             if k:
                 rest = m.group(1)[k.end():]
                 n = int(k.group(1))
-                if rest[n:].startswith("Lb0"):
+                if rest[_skip_template_args(rest, n):].startswith("Lb0"):
                     body = FLAT_STRUCTS.get(rest[:n])
         elif body and "spill stores" in line:
             out[body] = line.strip()
@@ -265,43 +368,57 @@ def phase_build(card):
     from swift_subtask_dev_tpu_torch.ops import cuda_build, pair_flat
     from swift_subtask_dev_tpu_torch.ops import pair_packed, pair_ring
     from swift_subtask_dev_tpu_torch.probes import vpu_peak
+    modes = pair_flat.all_modes()
     libs = [pair_flat.LIBRARY, pair_packed.LIBRARY, pair_ring.LIBRARY,
-            vpu_peak.LIBRARY]
+            vpu_peak.LIBRARY] + [pair_flat.mode_library(m) for m in modes]
     t0 = time.perf_counter()
     paths = cuda_build.build_all(libs, force=True)
     for lib, path in zip(libs, paths):
         lib.load()
         print(f"build: nvcc {lib.build_seconds:.2f} s -> {path}")
-        if lib is not pair_flat.LIBRARY:
+        if lib in (pair_packed.LIBRARY, pair_ring.LIBRARY,
+                   vpu_peak.LIBRARY):
             for line in lib.build_log.splitlines():
                 if "registers" in line or "spill" in line:
                     print("  ptxas:", line.strip())
-    print(f"build: {len(libs)} libraries in "
-          f"{time.perf_counter() - t0:.2f} s")
-    spills = ptxas_spills(pair_flat.LIBRARY.build_log)
+    print(f"build: {len(libs)} libraries (K1's {len(modes)} SPH mode "
+          f"libraries among them) in {time.perf_counter() - t0:.2f} s, "
+          f"one nvcc each, all started together")
     print(f"flat kernel entries [{card}]:")
-    for name in pair_flat.BODY_NAMES + pair_flat.PROBE_BODY_NAMES:
-        a = pair_flat.kernel_attributes(name)
-        print(f"  pair_flat_{name}: {a['registers']} registers, "
-              f"{a['local_bytes']} local bytes/thread, shared "
-              f"{a['static_smem']} static + {a['dynamic_smem']} dynamic "
-              f"bytes/block, {a['blocks_per_sm']} blocks/SM, window "
-              f"{a['window']} rows, {a['stages']} stages of "
-              f"{a['chunk_rows']} rows; ptxas: "
-              f"{spills.get(name, 'not found')}")
+    for mode in ("",) + modes:
+        spills = ptxas_spills(pair_flat.mode_library(mode).build_log)
+        names = (pair_flat.BODY_NAMES + pair_flat.PROBE_BODY_NAMES
+                 if not mode else pair_flat.mode_body_names(mode))
+        for name in names:
+            a = pair_flat.kernel_attributes(name, mode)
+            key = name + (f"[{mode}]" if mode else "")
+            print(f"  pair_flat_{key}: {a['registers']} registers, "
+                  f"{a['local_bytes']} local bytes/thread, shared "
+                  f"{a['static_smem']} static + {a['dynamic_smem']} "
+                  f"dynamic bytes/block, {a['blocks_per_sm']} blocks/SM, "
+                  f"window {a['window']} rows, {a['stages']} stages of "
+                  f"{a['chunk_rows']} rows; ptxas: "
+                  f"{spills.get(name, 'not found')}")
 
 
-def bench_engine(n1, mesh_N, device):
-    """bench.py:141-183 (uniform IC, SPHENIX + P3M, flat columns)."""
+def bench_engine(n1, mesh_N, device, scheme="sphenix",
+                 kernel="cubic-spline"):
+    """bench.py:141-183 (uniform IC, SPH + P3M, flat columns), SPHENIX
+    with the cubic spline as bench.py runs it, or another SPH:scheme and
+    SPH:kernel in its place (Gadget2's u slot holds the entropy, from the
+    IC's density 1)."""
     from swift_subtask_dev_tpu_torch.engine import Engine, EngineConfig
     from swift_subtask_dev_tpu_torch.grid import CellGrid
     from swift_subtask_dev_tpu_torch.ics import uniform_box_ic
     from swift_subtask_dev_tpu_torch.models.gravity import (GravityParams,
                                                             GravitySolver)
-    from swift_subtask_dev_tpu_torch.models.sph.sphenix import SPHENIXParams
+    from swift_subtask_dev_tpu_torch.models.sph import SCHEMES, gadget2
+    from swift_subtask_dev_tpu_torch.models.sph.kernels import KERNELS
+    import numpy as np
 
     ic = uniform_box_ic(n=n1, jitter=0.2, seed=3)
-    P = SPHENIXParams(h_max=float(ic["h"].max() * 3))
+    P = SCHEMES[scheme](kernel=KERNELS[kernel],
+                        h_max=float(ic["h"].max() * 3))
     gp = GravityParams(G=1.0, eps=0.5 / n1, mesh_N=mesh_N)
     r_cut = gp.r_cut_ratio * gp.a_smooth * 1.0 / gp.mesh_N
     hydro_reach = float(ic["h"].max() * P.kernel.gamma * 1.25)
@@ -319,7 +436,11 @@ def bench_engine(n1, mesh_N, device):
                  mesh_fn=solver.gas_mesh_fn(),
                  mesh_dt_scale=solver.pm.r_s)
     eng.solver_builder = lambda g: GravitySolver(gp, g, device=device)
-    eng.load_particles(ic["pos"], ic["m"], ic["v"], ic["u"], ic["h"])
+    u = ic["u"]
+    if scheme == "gadget2":
+        u = gadget2.entropy_from_internal_energy(
+            P, np.ones_like(u), u).numpy()
+    eng.load_particles(ic["pos"], ic["m"], ic["v"], u, ic["h"])
     return eng, P, solver, len(ic["pos"])
 
 
@@ -327,15 +448,23 @@ def body_passes(eng, P, solver):
     """The five bodies' passes on the engine's current state."""
     from swift_subtask_dev_tpu_torch.models.sph.sphenix import CosmoFactors
     from swift_subtask_dev_tpu_torch.ops import hydro_flat
-    s, cosmo = eng.state, CosmoFactors.no_cosmo()
     fs = solver.gas_short_range_fn().fuse_spec
-    return [
-        hydro_flat.density_pass(s, P),
-        hydro_flat.gradient_pass(s, P, cosmo),
-        hydro_flat.force_pass(s, P, cosmo),
-        hydro_flat.force_gravity_pass(s, P, cosmo, **fs),
-        hydro_flat.p2p_gravity_pass(s, **fs),
-    ]
+    return (sph_passes(eng.state, P, CosmoFactors.no_cosmo(), fs)
+            + [hydro_flat.p2p_gravity_pass(eng.state, **fs)])
+
+
+def sph_passes(s, P, cosmo, fuse_spec=None):
+    """The SPH bodies of P's mode on the state ``s``: density, gradient
+    (when the scheme has one), force and, with ``fuse_spec``, force +
+    gravity."""
+    from swift_subtask_dev_tpu_torch.ops import hydro_flat
+    out = [hydro_flat.density_pass(s, P)]
+    if P.mod.HAS_GRADIENT_LOOP:
+        out.append(hydro_flat.gradient_pass(s, P, cosmo))
+    out.append(hydro_flat.force_pass(s, P, cosmo))
+    if fuse_spec is not None:
+        out.append(hydro_flat.force_gravity_pass(s, P, cosmo, **fuse_spec))
+    return out
 
 
 def time_ms(fn, reps, warmup=True):
@@ -354,8 +483,24 @@ def time_ms(fn, reps, warmup=True):
     return out, t0.elapsed_time(t1) / reps
 
 
-def compare(out_k, out_p, body):
-    """(ok, max_abs_err, worst relative error per output)."""
+F32_U = 2.0 ** -24      # the unit roundoff of float32
+
+
+def compare(out_k, out_p, body, abs_sums=None, slot_pairs=None):
+    """(ok, max_abs_err, worst relative error per output).  Sums within
+    1e-5 of max |plain|; or, with ``abs_sums`` (the plain version's
+    sum_j |term_j| per slot, ``abs_body``) and ``slot_pairs`` (its
+    accepted pairs per slot), each slot within (2 n + 8) u of its own sum
+    of magnitudes (the relative error printed is in that unit), n the
+    slot's pairs and u = 2^-24.  Both versions evaluate the same f32 pair
+    terms (bit for bit: tools/torch_sum_order.py), and an f32 sum of n
+    terms parts from the exact sum by at most (n - 1) u sum|t| (the
+    kernel adds a slot's terms one by one, the plain version each
+    offset's rows by torch.sum).  Where a state's sums cancel (a shock
+    tube's transverse accelerations) a fraction of max would hold that
+    rounding to the wrong scale.  A live Sod slot accepts ~60 pairs
+    (<= 7.6e-6 of sum|t|); an empty one, pad-filled (h = 1), every row of
+    its nine columns: thousands, summed one by one."""
     import torch
     errs, max_abs = [], 0.0
     ok = True
@@ -363,8 +508,14 @@ def compare(out_k, out_p, body):
         a, b = out_k[q].double(), out_p[q].double()
         if q < body.n_sum:
             d = (a - b).abs().max().item()
-            rel = d / max(b.abs().max().item(), 1e-30)
-            ok &= rel <= 1e-5
+            if abs_sums is None:
+                rel = d / max(b.abs().max().item(), 1e-30)
+                ok &= rel <= 1e-5
+            else:
+                scale = abs_sums[q].double()
+                rel = ((a - b).abs() / scale.clamp_min(1e-30)).max().item()
+                tol = (2.0 * slot_pairs.double() + 8.0) * F32_U * scale
+                ok &= bool(torch.all((a - b).abs() <= tol))
         else:
             fa, fb = torch.isfinite(a), torch.isfinite(b)
             same_inf = bool(torch.equal(fa, fb)) and bool(
@@ -391,15 +542,35 @@ def bound(body, work, pairs):
     n_bytes = 4 * (n_live * len(body.fields)
                    + n_written * (body.n_sum + body.n_max)) + index_bytes
     t_bytes = n_bytes / PEAK_BYTES_PER_S
-    t_ops = pairs * OPS_PER_PAIR[body.name] / PEAK_FP32_PER_S
+    t_ops = pairs * ops_per_pair(body) / PEAK_FP32_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def hold_against_plain(module, launch, body, card, exact=False, reps=5):
+def body_key(body):
+    """A body's name with its SPH mode (``pair_flat.body_key``)."""
+    from swift_subtask_dev_tpu_torch.ops import pair_flat
+    return pair_flat.body_key(body)
+
+
+def abs_body(body):
+    """``body`` with the absolute value of each pair term in its sums: its
+    plain version gives each slot's sum_j |term_j| (``compare``)."""
+    import dataclasses
+    import torch
+
+    def fn(sf, nf, dx, r2):
+        ok, sums, maxes = body.fn(sf, nf, dx, r2)
+        return ok, [torch.abs(v) for v in sums], maxes
+    return dataclasses.replace(body, fn=fn)
+
+
+def hold_against_plain(module, launch, body, card, exact=False, reps=5,
+                       per_slot=False):
     """Kernel vs plain version on one launch: times (CUDA events), the
-    comparison, the true pairs the plain version counts, and the kernel's
-    walk (``hold_walk``)."""
+    comparison (``per_slot``: each sum against its slot's sum of
+    magnitudes, ``compare``), the true pairs the plain version counts,
+    and the kernel's walk (``hold_walk``)."""
     import torch
     out_k, ms = time_ms(lambda: module.pair_apply_kernel(launch, body),
                         reps)
@@ -412,13 +583,19 @@ def hold_against_plain(module, launch, body, card, exact=False, reps=5):
         max_abs = 0.0 if ok else float("inf")
         errs = [0.0 if ok else float("inf")]
     else:
-        ok, max_abs, errs = compare(out_k, out_p, body)
+        abs_sums = (module.pair_apply_plain(launch, abs_body(body))
+                    if per_slot else None)
+        ok, max_abs, errs = compare(out_k, out_p, body, abs_sums,
+                                    stats.get("slot_pairs"))
+        del abs_sums
     del out_p
-    print(f"  {body.name:14s} ok={ok} max_abs_err={max_abs:.3e} "
-          f"rel_errs={[float(f'{e:.2e}') for e in errs]} kernel "
+    key = body_key(body)
+    print(f"  {key:14s} ok={ok} max_abs_err={max_abs:.3e} "
+          f"rel_errs{'_per_slot' if per_slot else ''}="
+          f"{[float(f'{e:.2e}') for e in errs]} kernel "
           f"{ms:.4f} ms plain {plain_ms:.1f} ms true pairs "
           f"{stats['pairs']} [{card}]")
-    check(ok, f"{body.name}: kernel and plain version disagree"
+    check(ok, f"{key}: kernel and plain version disagree"
           + (" (must be bit-identical)" if exact else ""))
     hold_walk(module, launch, body, out_k, stats, card)
     del out_k
@@ -514,10 +691,10 @@ def hold_walk(module, launch, body, out_k, plain_stats, card):
     print(f"    walk: {summary}; kept share {kept:.4f}; pairs per warp "
           f"{'equal to' if same else 'DIFFERENT from'} the plain "
           f"version's [{card}]")
-    check(same, f"{body.name}: the kernel's pairs per warp differ from "
-          "the plain version's")
-    check(torch.equal(out_s, out_k), f"{body.name}: a launch with walk "
-          "statistics gave other outputs")
+    check(same, f"{body_key(body)}: the kernel's pairs per warp "
+          "differ from the plain version's")
+    check(torch.equal(out_s, out_k), f"{body_key(body)}: a launch "
+          "with walk statistics gave other outputs")
     if not flat:
         again = bool(torch.equal(module.pair_apply_kernel(launch, body),
                                  out_k))
@@ -605,22 +782,26 @@ def brute_density(eng, P, n_sample=1024, seed=0, state=None, among=None):
     h = s["h"].reshape(-1)[live].double()
     rho = s["rho"].reshape(-1)[live].double()
     idx = sample(pos.shape[0], n_sample, seed, dev, among)
-    gamma = P.kernel.gamma
-    norm = 16.0 / math.pi
+    ref = brute_kernel_sum(pos, box, h, m, idx, P.kernel)
+    err = ((rho[idx] - ref).abs() / ref).max().item()
+    return err, ref.mean().item()
+
+
+def brute_kernel_sum(pos, box, h, q, idx, kernel):
+    """float64 sum_j q_j W(r_ij, h_i) over every particle j (self
+    included, periodic minimum image) for the particles ``idx``, with the
+    kernel's own polynomial (models/sph/kernels.py) in float64."""
+    import torch
     out = []
     for c in range(0, idx.numel(), 32):
         i = idx[c:c + 32]
         d = pos[i][:, None, :] - pos[None, :, :]
         d = d - box * torch.round(d / box)
         r = torch.sqrt((d * d).sum(-1))
-        H = gamma * h[i][:, None]
-        x = r / H
-        w = torch.clamp(1 - x, min=0) ** 3 - 4 * torch.clamp(0.5 - x,
-                                                             min=0) ** 3
-        out.append((m[None, :] * norm * w / H ** 3).sum(-1))
-    ref = torch.cat(out)
-    err = ((rho[idx] - ref).abs() / ref).max().item()
-    return err, ref.mean().item()
+        hi = h[i][:, None]
+        w, _ = kernel.deval(r / hi)
+        out.append((q[None, :] * w / hi ** 3).sum(-1))
+    return torch.cat(out)
 
 
 def finite_state(s):
@@ -1855,6 +2036,265 @@ def hold_active_bhs(device, card, n_side, n_steps=2):
     hold_bh_p2p(solver, eng.grid, eng.state, card)
 
 
+# ---------------------------------------------------------------------------
+# Phases 13 and 14: K1's SPH modes (schemes and smoothing kernels)
+# ---------------------------------------------------------------------------
+
+def mode_bodies(P):
+    """The LAUNCHES keys of P's SPH bodies on a path without gravity."""
+    from swift_subtask_dev_tpu_torch.ops import hydro_flat
+    mode = hydro_flat.sph_mode(P)
+    tag = f"[{mode}]" if mode else ""
+    return (("density", "gradient", "force") if P.mod.HAS_GRADIENT_LOOP
+            else ("density", "force")), tag
+
+
+def total_mass(s):
+    return float((s["m"].double() * (s["mask"] > 0)).sum())
+
+
+def hold_modes(eng, P, card, launches, cosmo, fuse_spec=None, entries=None,
+               per_slot=False):
+    """Each SPH body of P's mode (sph_passes) against its plain version on
+    the engine's state (phase 3's tolerances, or ``per_slot`` against each
+    slot's sum of magnitudes; hold_walk); one kernel entry each, with the
+    path's launches."""
+    from swift_subtask_dev_tpu_torch.ops import pair_flat
+    out = [] if entries is None else entries
+    for pp in sph_passes(eng.state, P, cosmo, fuse_spec):
+        launch, body = pair_flat.prepare(eng.grid, pp), pp.body
+        ms, plain_ms, max_abs, pairs = hold_against_plain(
+            pair_flat, launch, body, card, per_slot=per_slot)
+        b_ms, b_by = bound(body, flat_work(launch, body), pairs)
+        key = body_key(body)
+        out.append(entry(f"pair_flat_{key}", FLAT_SOURCE, FLAT_REPLACES,
+                         launches.get(key, 0), max_abs, ms, plain_ms, b_ms,
+                         b_by))
+    return out
+
+
+def phase_schemes_main(device, card, n1=80, mesh_N=192):
+    """Phase 13: each of SCHEME_RUNS on the main path's geometry
+    (bench.py's 1,024,000 particles, P3M, split mesh): init_particles() +
+    run_fixed_dt(SCHEME_STEPS) with the launch counters reset just
+    before; finite state, total mass unchanged, every body of the mode
+    launched, the float64 brute-force density (and Pressure-Energy's
+    smoothed pressure) on 1,024 particles, each body against its plain
+    version."""
+    import torch
+    from swift_subtask_dev_tpu_torch.models.sph.sphenix import CosmoFactors
+    from swift_subtask_dev_tpu_torch.ops import hydro_flat, pair_flat
+    kernels = []
+    for scheme, kernel in SCHEME_RUNS:
+        eng, P, solver, n = bench_engine(n1, mesh_N, device, scheme, kernel)
+        print(f"phase 13: {scheme} with the {kernel}, {n} particles, grid "
+              f"cdim={list(eng.grid.cdim)} W={eng.grid.K}, mesh_N={mesh_N}")
+        m0 = total_mass(eng.state)
+        torch.cuda.synchronize()
+        pair_flat.reset_launches()
+        t0 = time.perf_counter()
+        diag = eng.init_particles()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng.run_fixed_dt(SCHEME_STEPS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = dict(pair_flat.LAUNCHES)
+        step_ms = 1e3 * (t2 - t1) / SCHEME_STEPS
+        print(f"  init_particles {t1 - t0:.3f} s (ghost iterations "
+              f"{diag['n_ghost_iter']}), run_fixed_dt({SCHEME_STEPS}) "
+              f"{t2 - t1:.3f} s: {step_ms:.2f} ms/step, "
+              f"{SCHEME_STEPS * n / (t2 - t1):.1f} particle-steps/s "
+              f"[{card}]")
+        print(f"  kernel launches: {launches}")
+        s = eng.state
+        bad = finite_state(s)
+        check(not bad, f"{scheme}: non-finite state fields: {bad}")
+        check(diag["n_ghost_iter"] < eng.cfg.max_ghost_iterations,
+              f"{scheme}: init ghost did not converge")
+        check(total_mass(s) == m0, f"{scheme}: total mass changed")
+        names, tag = mode_bodies(P)
+        for name in names + ("force_gravity",):
+            check(launches.get(name + tag, 0) > 0,
+                  f"{name}{tag}: kernel never launched on the main path")
+        err, ref_mean = brute_density(eng, P)
+        print(f"  brute-force float64 density on 1024 sampled particles: "
+              f"mean {ref_mean:.6f}, max relative error {err:.3e}")
+        check(err <= 1e-4, f"{scheme}: density disagrees with the float64 "
+              "brute force")
+        cosmo = CosmoFactors.no_cosmo()
+        if P.mod.DENSITY_NEEDS_U:
+            # a fresh density pass (the state's u at the pass's time) and
+            # end_density: P̄ = (gamma - 1) sum_j m_j u_j W(r_ij, h_i)
+            d = hydro_flat.density_loop(eng.grid, s, P)
+            pb = P.mod.end_density(P, {**s, **d}, cosmo)["pressure_bar"]
+            pos, live = live_f64(eng.grid, s)
+            box = torch.tensor(eng.grid.box, dtype=torch.float64,
+                               device=pos.device)
+
+            def flat(x):
+                return x.reshape(-1)[live].double()
+            idx = sample(pos.shape[0], 1024, 4, pos.device)
+            ref = (P.eos.gamma - 1.0) * brute_kernel_sum(
+                pos, box, flat(s["h"]), flat(s["m"]) * flat(s["u"]), idx,
+                P.kernel)
+            perr = ((flat(pb)[idx] - ref).abs() / ref.abs()).max().item()
+            print(f"  smoothed pressure against the float64 brute force on "
+                  f"1024 particles: max relative error {perr:.3e}")
+            check(perr <= 1e-4, f"{scheme}: pressure_bar disagrees with the "
+                  "float64 brute force")
+        hold_modes(eng, P, card, launches, cosmo,
+                   solver.gas_short_range_fn().fuse_spec, kernels)
+        print(f"  [{scheme}, {kernel}] main path {step_ms:.2f} ms/step")
+        del eng, solver
+        torch.cuda.empty_cache()
+    return kernels
+
+
+def sod_run(scheme, kernel, n, device, card, t_end=SOD_T_END,
+            max_steps=10 ** 9):
+    """The port's Sod example (examples/sodshock.py) with the launch
+    counters reset just before; finite state, total mass unchanged and
+    every body of the mode launched.  Returns (engine, result,
+    launches)."""
+    import torch
+    from swift_subtask_dev_tpu_torch.examples import sodshock
+    from swift_subtask_dev_tpu_torch.ops import pair_flat
+    eng = sodshock.make_engine(n, t_end, scheme, kernel, device)
+    m0 = total_mass(eng.state)
+    torch.cuda.synchronize()
+    pair_flat.reset_launches()
+    eng, res = sodshock.run_sod(n, t_end, engine=eng, max_steps=max_steps)
+    launches = dict(pair_flat.LAUNCHES)
+    bad = finite_state(eng.state)
+    check(not bad, f"Sod {scheme}/{kernel}: non-finite fields {bad}")
+    check(total_mass(eng.state) == m0,
+          f"Sod {scheme}/{kernel}: total mass changed")
+    names, tag = mode_bodies(eng.sph)
+    for name in names:
+        check(launches.get(name + tag, 0) > 0,
+              f"{name}{tag}: kernel never launched on the Sod run")
+    return eng, res, launches
+
+
+def sod_fuse_spec(grid):
+    """Short-range gravity literals (``fuse_spec``) for the force +
+    gravity holds on a Sod state, which has no gravity of its own: r_cut
+    0.9 of the narrower column edge (the 9-column walk covers it), r_s =
+    r_cut / 4.5 (the P3M split's r_cut_ratio), H = 3 eps with eps half
+    the left state's spacing (1 / SOD_N), G = 1."""
+    r_cut = 0.9 * min(grid.edge[0], grid.edge[1])
+    return dict(G=1.0, H_soft=1.5 / SOD_N, r_s=r_cut / 4.5, r_cut=r_cut)
+
+
+# the modes whose force + gravity body an earlier phase holds (SPHENIX
+# with the cubic spline in phase 3, SCHEME_RUNS on the main path)
+FUSED_ELSEWHERE = (("sphenix", "cubic-spline"),) + SCHEME_RUNS
+
+
+def hold_other_kernels(eng, device, card, cosmo, entries):
+    """Each mode of eng's scheme under the kernels of no Sod run, on the
+    run's developed state (SOD_HOLD_N, t = SOD_T_END): the state's particles
+    on a column grid for the kernel's reach, init_particles() (density,
+    ghost, gradient where the scheme has one, force; every body launched,
+    counters reset just before), then each body with force + gravity
+    (sod_fuse_spec) against its plain version per slot."""
+    import dataclasses
+    import torch
+    from swift_subtask_dev_tpu_torch.engine import Engine
+    from swift_subtask_dev_tpu_torch.grid.cellgrid import CellGrid
+    from swift_subtask_dev_tpu_torch.models.sph import scheme_name
+    from swift_subtask_dev_tpu_torch.models.sph.kernels import KERNELS
+    from swift_subtask_dev_tpu_torch.ops import pair_flat
+    scheme = scheme_name(eng.sph)
+    pos, f = eng._extract_particles(eng.state)
+    for kernel, K in KERNELS.items():
+        if (scheme, kernel) in SOD_RUNS:
+            continue
+        t0 = time.perf_counter()
+        P = dataclasses.replace(eng.sph, kernel=K)
+        grid = CellGrid.build_columns(
+            eng.grid.box, interaction_range=float(f["h"].max() * K.gamma
+                                                  * 1.4), pos=pos)
+        e2 = Engine(grid, P, eng.cfg, eng.time, eng.time + 1.0,
+                    device=device)
+        e2.load_particles(pos, f["m"], f["v_full"], f["u_full"], f["h"],
+                          pid=f["pid"])
+        torch.cuda.synchronize()
+        pair_flat.reset_launches()
+        diag = e2.init_particles()
+        torch.cuda.synchronize()
+        launches = dict(pair_flat.LAUNCHES)
+        bad = finite_state(e2.state)
+        check(not bad, f"Sod {scheme}/{kernel}: non-finite fields {bad}")
+        check(diag["n_ghost_iter"] < e2.cfg.max_ghost_iterations,
+              f"Sod {scheme}/{kernel}: ghost did not converge")
+        names, tag = mode_bodies(P)
+        for name in names:
+            check(launches.get(name + tag, 0) > 0,
+                  f"{name}{tag}: kernel never launched by init_particles")
+        print(f"phase 14: {scheme} with the {kernel} on the state at t = "
+              f"{eng.time:.4f}: grid cdim={list(grid.cdim)} W={grid.K}, "
+              f"ghost iterations {diag['n_ghost_iter']} [{card}]")
+        hold_modes(e2, P, card, launches, cosmo, sod_fuse_spec(grid),
+                   entries, per_slot=True)
+        print(f"  {time.perf_counter() - t0:.1f} s for the mode")
+        del e2
+        torch.cuda.empty_cache()
+
+
+def phase_sod(device, card):
+    """Phase 14: the Sod shock (SOD_N, to SOD_T_END) of each of SOD_RUNS:
+    L1(rho)/mean, L1(vx), energy drift and ms per step, L1(rho) no larger
+    than the reference's own at n = 32 (SOD_REFERENCE_L1), each body of
+    the mode against its plain version on the final state (each slot's
+    sums within the f32 rounding bound of its sum of magnitudes,
+    ``compare``: the tube's transverse accelerations cancel to ~0, so a
+    fraction of max would hold rounding to the wrong scale), with force +
+    gravity (sod_fuse_spec) where no earlier phase holds it; then every
+    other mode (each scheme under the other kernels) on the final state
+    of its scheme's cubic-spline Sod at SOD_HOLD_N (hold_other_kernels)."""
+    import torch
+    from swift_subtask_dev_tpu_torch.models.sph.sphenix import CosmoFactors
+    kernels = []
+    cosmo = CosmoFactors.no_cosmo()
+    for scheme, kernel in SOD_RUNS:
+        t0 = time.perf_counter()
+        eng, res, launches = sod_run(scheme, kernel, SOD_N, device, card)
+        n = int((eng.state["mask"] > 0).sum())
+        ms = 1e3 * res["run_seconds"] / max(res["steps"], 1)
+        print(f"phase 14: Sod {scheme} with the {kernel}, {n} particles, "
+              f"grid cdim={list(eng.grid.cdim)} W={eng.grid.K}: "
+              f"{res['steps']} steps to t = {res['t']:.4f} in "
+              f"{res['run_seconds']:.3f} s ({ms:.2f} ms/step; init "
+              f"{res['init_seconds']:.3f} s), re-grids {res['n_regrids']}; "
+              f"L1(rho)/mean {res['l1_rho']:.5f}, L1(vx) "
+              f"{res['l1_vx']:.5f}, energy drift "
+              f"{res['energy_drift']:.3e} [{card}]")
+        print(f"  kernel launches: {launches}")
+        bound_l1 = SOD_REFERENCE_L1[(scheme, kernel)]
+        check(res["l1_rho"] <= bound_l1,
+              f"Sod {scheme}/{kernel}: L1(rho)/mean {res['l1_rho']:.5f} "
+              f"above the reference's {bound_l1:.5f} at n = 32")
+        fs = (None if (scheme, kernel) in FUSED_ELSEWHERE
+              else sod_fuse_spec(eng.grid))
+        hold_modes(eng, eng.sph, card, launches, cosmo, fs, entries=kernels,
+                   per_slot=True)
+        print(f"  {time.perf_counter() - t0:.1f} s for the run and holds")
+        del eng
+        torch.cuda.empty_cache()
+    for scheme in dict.fromkeys(sc for sc, _ in SOD_RUNS):
+        eng, res, _ = sod_run(scheme, "cubic-spline", SOD_HOLD_N, device,
+                              card)
+        print(f"phase 14: Sod {scheme} with the cubic-spline at n = "
+              f"{SOD_HOLD_N}: {res['steps']} steps to t = {res['t']:.4f}, "
+              f"L1(rho)/mean {res['l1_rho']:.5f} [{card}]")
+        hold_other_kernels(eng, device, card, cosmo, kernels)
+        del eng
+        torch.cuda.empty_cache()
+    return kernels
+
+
 def phase_vpu_peak(device, card):
     """T1: the FP32 probe against its plain version at 2 x 64 steps, then
     its entry point (the launch counter reset just before)."""
@@ -1947,6 +2387,14 @@ def main():
         phase_dmo(device, card)
         kernels += phase_eagle(device, card)
         phase_eagle_bh(device, card)
+        kernels += phase_schemes_main(device, card)
+        kernels += phase_sod(device, card)
+        # one entry a kernel mode: the first path that held it (the main
+        # path's SPHENIX bodies, phase 13's before the Sod runs')
+        first = {}
+        for k in kernels:
+            first.setdefault(k["name"], k)
+        kernels = list(first.values())
     except (PhaseFailed, ImportError, RuntimeError, ValueError,
             OSError, subprocess.SubprocessError) as e:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}",

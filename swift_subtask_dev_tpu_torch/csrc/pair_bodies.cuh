@@ -3,10 +3,19 @@
 //
 // Each body is the per-pair evaluation of one loop of ops/hydro_flat.py,
 // with the same formulas and the same f32 operation order as the plain
-// torch callbacks there (models/sph/sphenix.py density_terms,
-// gradient_terms, force_terms; ops/p2p_gravity.py force_pot_factors).
+// torch callbacks there (the schemes' density_terms, gradient_terms and
+// force_terms in models/sph/; ops/p2p_gravity.py force_pot_factors).
 // The library is built without fast math and without FMA contraction, so
 // each expression rounds as its torch counterpart does.
+//
+// The SPH bodies are templates over a smoothing kernel (a struct with
+// deval_x: models/sph/kernels.py, the six of its KERNELS) and, for
+// density and force, an SPH scheme (a struct of term functions: Sphenix,
+// Minimal, Gadget2, PressureEnergy, AnarchyPU).  DensityT<S, K>,
+// GradientT<K>, ForceT<S, K> and ForceGravityT<S, K> are the flat
+// kernel's modes (csrc/pair_flat.cu builds one library per scheme and
+// kernel); Density, Gradient and Force, the packed and ring kernels'
+// bodies, are SPHENIX with the cubic spline.
 //
 // A body is a struct with
 //   F, NS, NM        field count, sum outputs, max outputs
@@ -50,21 +59,112 @@ __device__ __forceinline__ float r_inv_of(float r2) {
   return r2 > 0.f ? rsqrtf(fmaxf(r2, FL(1e-38))) : 0.f;
 }
 
-// Cubic spline in truncated-power form: w(x) = (1-x)_+^3 - 4 (1/2-x)_+^3,
-// x = u / gamma (models/sph/kernels.py SPHKernel.deval).
-__device__ __forceinline__ void cubic_deval(float u, const BodyParams& p,
-                                            float& w, float& dw) {
+// ---------------------------------------------------------------------------
+// Smoothing kernels (models/sph/kernels.py SPHKernel.deval): deval_x(x)
+// gives (w, dw/dx) on x = u / gamma, before the normalisations g3, g4.
+// The splines in truncated-power form, w = sum_k c_k (a_k - x)_+^deg,
+// term by term; the Wendland kernels by Horner over their one branch,
+// w clamped to >= 0 and dw to <= 0, zero for x >= 1.
+// ---------------------------------------------------------------------------
+
+// one truncated-power term c (a - x)_+^DEG added to (w, dw)
+template <int DEG>
+__device__ __forceinline__ void tp_term(float x, float a, float c,
+                                        float& w, float& dw) {
+  const float t = fmaxf(a - x, 0.f);
+  float pw = t;
+#pragma unroll
+  for (int k = 0; k < DEG - 2; ++k) pw = pw * t;     // t^(DEG-1)
+  w = w + c * (pw * t);
+  dw = dw + (FL(-DEG) * c) * pw;
+}
+
+// Horner over one branch's coefficients (highest power first), then the
+// Wendland clamps
+template <int N>
+__device__ __forceinline__ void horner_branch(const float (&cs)[N], float x,
+                                              float& w, float& dw) {
+  float wi = cs[0];
+  float dwi = 0.f;
+#pragma unroll
+  for (int k = 1; k < N; ++k) {
+    dwi = dwi * x + wi;
+    wi = wi * x + cs[k];
+  }
+  const bool inside = x < 1.f;
+  w = inside ? fmaxf(wi, 0.f) : 0.f;
+  dw = inside ? fminf(dwi, 0.f) : 0.f;
+}
+
+struct CubicSpline {
+  static __device__ __forceinline__ void deval_x(float x, float& w,
+                                                 float& dw) {
+    w = 0.f;
+    dw = 0.f;
+    tp_term<3>(x, FL(1.0), FL(1.0), w, dw);
+    tp_term<3>(x, FL(0.5), FL(-4.0), w, dw);
+  }
+};
+
+struct QuarticSpline {
+  static __device__ __forceinline__ void deval_x(float x, float& w,
+                                                 float& dw) {
+    w = 0.f;
+    dw = 0.f;
+    tp_term<4>(x, FL(1.0), FL(1.0), w, dw);
+    tp_term<4>(x, FL(0.6), FL(-5.0), w, dw);
+    tp_term<4>(x, FL(0.2), FL(10.0), w, dw);
+  }
+};
+
+struct QuinticSpline {
+  static __device__ __forceinline__ void deval_x(float x, float& w,
+                                                 float& dw) {
+    w = 0.f;
+    dw = 0.f;
+    tp_term<5>(x, FL(1.0), FL(1.0), w, dw);
+    tp_term<5>(x, FL(2.0 / 3.0), FL(-6.0), w, dw);
+    tp_term<5>(x, FL(1.0 / 3.0), FL(15.0), w, dw);
+  }
+};
+
+struct WendlandC2 {
+  static __device__ __forceinline__ void deval_x(float x, float& w,
+                                                 float& dw) {
+    const float cs[6] = {FL(4.0), FL(-15.0), FL(20.0), FL(-10.0), FL(0.0),
+                         FL(1.0)};
+    horner_branch(cs, x, w, dw);
+  }
+};
+
+struct WendlandC4 {
+  static __device__ __forceinline__ void deval_x(float x, float& w,
+                                                 float& dw) {
+    const float cs[9] = {FL(11.666667), FL(-64.0), FL(140.0),
+                         FL(-149.333333), FL(70.0), FL(0.0),
+                         FL(-9.3333333), FL(0.0), FL(1.0)};
+    horner_branch(cs, x, w, dw);
+  }
+};
+
+struct WendlandC6 {
+  static __device__ __forceinline__ void deval_x(float x, float& w,
+                                                 float& dw) {
+    const float cs[12] = {FL(32.0), FL(-231.0), FL(704.0), FL(-1155.0),
+                          FL(1056.0), FL(-462.0), FL(0.0), FL(66.0),
+                          FL(0.0), FL(-11.0), FL(0.0), FL(1.0)};
+    horner_branch(cs, x, w, dw);
+  }
+};
+
+// (w, dw_du) for u = r/h: W(r, h) = w / h^3, dW/dr = dw_du / h^4
+template <class K>
+__device__ __forceinline__ void kernel_deval(float u, const BodyParams& p,
+                                             float& w, float& dw) {
   const float x = u * p.v[P_GAMMA_INV];
-  const float t1 = fmaxf(1.f - x, 0.f);
-  const float pw1 = t1 * t1;
-  const float wt1 = 1.f * (pw1 * t1);
-  const float dwt1 = -3.f * pw1;
-  const float t2 = fmaxf(0.5f - x, 0.f);
-  const float pw2 = t2 * t2;
-  const float wt2 = -4.f * (pw2 * t2);
-  const float dwt2 = 12.f * pw2;
-  w = (wt1 + wt2) * p.v[P_G3];
-  dw = (dwt1 + dwt2) * p.v[P_G4];
+  K::deval_x(x, w, dw);
+  w = w * p.v[P_G3];
+  dw = dw * p.v[P_G4];
 }
 
 // (F, P) softened + erfc-truncated force/potential factors
@@ -100,11 +200,15 @@ __device__ __forceinline__ void force_pot_factors(float r2, float H_inv,
 }
 
 // ---------------------------------------------------------------------------
-// density: fields (mask, off0-2, v0-2, h, hinv, m); 8 sums
+// density: fields (mask, off0-2, v0-2, h, hinv, m), and u when the scheme's
+// density reads u_j (S::DENSITY_NEEDS_U); 8 sums, and the scheme's
+// S::N_DENSITY_EXTRA more (Pressure-Energy: pressure_bar, pressure_bar_dh)
 // ---------------------------------------------------------------------------
-struct Density {
-  static constexpr int F = 10, NS = 8, NM = 0, NP = 4;
-  enum { V0 = 4, H = 7, HINV = 8, M = 9 };
+template <class S, class K>
+struct DensityT {
+  static constexpr int F = S::DENSITY_NEEDS_U ? 11 : 10;
+  static constexpr int NS = 8 + S::N_DENSITY_EXTRA, NM = 0, NP = 4;
+  enum { V0 = 4, H = 7, HINV = 8, M = 9, U = 10 };
   static __device__ __forceinline__ bool in_range(
       const float* si, const float*, float r2, const BodyParams& p) {
     const float h_i = si[H];
@@ -130,7 +234,7 @@ struct Density {
     const float r = r2 * r_inv;
     const float ui = r * si[HINV];
     float wi, wi_dx;
-    cubic_deval(ui, p, wi, wi_dx);
+    kernel_deval<K>(ui, p, wi, wi_dx);
     const float faci = m_j * wi_dx * r_inv;
     const float dvdr = dv0 * dx0 + dv1 * dx1 + dv2 * dx2;
     const float curl0 = dv1 * dx2 - dv2 * dx1;
@@ -145,15 +249,23 @@ struct Density {
     sums[5] = faci * curl0;
     sums[6] = faci * curl1;
     sums[7] = faci * curl2;
+    if constexpr (S::DENSITY_NEEDS_U) {
+      // models/sph/pressure_energy.py density_terms (hydro_iact.h:92)
+      const float mjuj = m_j * nj[U];
+      sums[8] = mjuj * wi;
+      sums[9] = -mjuj * kick;
+    }
     return ok;
   }
 };
 
 // ---------------------------------------------------------------------------
-// gradient: fields (mask, off0-2, v0-2, h, hinv, m, u, rhoinv, cs, av);
-// 1 sum (laplace_u), 2 maxes (v_sig, alpha_visc_max_ngb)
+// gradient (SPHENIX's, also AnarchyPU's): fields (mask, off0-2, v0-2, h,
+// hinv, m, u, rhoinv, cs, av); 1 sum (laplace_u), 2 maxes (v_sig,
+// alpha_visc_max_ngb)
 // ---------------------------------------------------------------------------
-struct Gradient {
+template <class K>
+struct GradientT {
   static constexpr int F = 14, NS = 1, NM = 2, NP = 6;
   enum { V0 = 4, H = 7, HINV = 8, M = 9, U = 10, RHOINV = 11, CS = 12,
          AV = 13 };
@@ -186,7 +298,7 @@ struct Gradient {
     const float new_v_sig = si[CS] + nj[CS] - FL(3.0) * mu_ij;
     const float ui = r * si[HINV];
     float wi, wi_dx;
-    cubic_deval(ui, p, wi, wi_dx);
+    kernel_deval<K>(ui, p, wi, wi_dx);
     const float delta_u_factor = (si[U] - nj[U]) * r_inv;
     sums[0] = nj[M] * delta_u_factor * wi_dx * nj[RHOINV];
     maxes[0] = new_v_sig;
@@ -196,9 +308,9 @@ struct Gradient {
 };
 
 // ---------------------------------------------------------------------------
-// force terms (models/sph/sphenix.py force_terms) on the force field
-// layout: (mask, off0-2, v0-2, h, m, u, rho, P, cs, fgh, bal, al, ad, tb,
-// hinv, minv, rhoinv, pr2)
+// The force field layout, shared by every scheme's force bodies
+// (ops/hydro_flat.py FORCE_FIELDS): (mask, off0-2, v0-2, h, m, u, rho, P,
+// cs, fgh, bal, al, ad, tb, hinv, minv, rhoinv, pr2)
 // ---------------------------------------------------------------------------
 enum ForceField { FV0 = 4, FH = 7, FM = 8, FU = 9, FRHO = 10, FP = 11,
                   FCS = 12, FFGH = 13, FBAL = 14, FAL = 15, FAD = 16,
@@ -221,84 +333,252 @@ __device__ __forceinline__ float hydro_reach2(const float* s,
   return p.v[P_GAMMA2] * s[FH] * s[FH];
 }
 
-__device__ __forceinline__ ForceTerms force_terms(
+// What every scheme's force shares: the kernel gradients of both sides,
+// the velocity divergence and the signal velocity
+struct PairKinematics {
+  float r_inv, wi_dr, wj_dr, dvdr, dvdr_Hubble, mu_ij, v_sig;
+};
+
+template <class K>
+__device__ __forceinline__ PairKinematics pair_kinematics(
     const float* si, const float* nj, float dx0, float dx1, float dx2,
     float r2, const BodyParams& p) {
-  const float r_inv = r_inv_of(r2);
-  const float r = r2 * r_inv;
+  PairKinematics k;
+  k.r_inv = r_inv_of(r2);
+  const float r = r2 * k.r_inv;
 
   const float hinv_i = si[FHINV], hinv_j = nj[FHINV];
   const float hid_inv = (hinv_i * hinv_i) * (hinv_i * hinv_i);
   const float xi = r * hinv_i;
   float wi, wi_dx;
-  cubic_deval(xi, p, wi, wi_dx);
-  const float wi_dr = hid_inv * wi_dx;
+  kernel_deval<K>(xi, p, wi, wi_dx);
+  k.wi_dr = hid_inv * wi_dx;
 
   const float hjd_inv = (hinv_j * hinv_j) * (hinv_j * hinv_j);
   const float xj = r * hinv_j;
   float wj, wj_dx;
-  cubic_deval(xj, p, wj, wj_dx);
-  const float wj_dr = hjd_inv * wj_dx;
+  kernel_deval<K>(xj, p, wj, wj_dx);
+  k.wj_dr = hjd_inv * wj_dx;
 
   const float dv0 = si[FV0] - nj[FV0];
   const float dv1 = si[FV0 + 1] - nj[FV0 + 1];
   const float dv2 = si[FV0 + 2] - nj[FV0 + 2];
-  const float dvdr = dv0 * dx0 + dv1 * dx1 + dv2 * dx2;
-  const float dvdr_Hubble = dvdr + p.v[P_A2H] * r2;
-  const float omega_ij = fminf(dvdr_Hubble, 0.f);
-  const float mu_ij = p.v[P_FAC_MU] * r_inv * omega_ij;
+  k.dvdr = dv0 * dx0 + dv1 * dx1 + dv2 * dx2;
+  k.dvdr_Hubble = k.dvdr + p.v[P_A2H] * r2;
+  const float omega_ij = fminf(k.dvdr_Hubble, 0.f);
+  k.mu_ij = p.v[P_FAC_MU] * k.r_inv * omega_ij;
+  k.v_sig = si[FCS] + nj[FCS] - FL(3.0) * k.mu_ij;
+  return k;
+}
 
-  const float v_sig = si[FCS] + nj[FCS] - FL(3.0) * mu_ij;
-
-  const float f_ij = 1.f - si[FFGH] * nj[FMINV];
-  const float f_ji = 1.f - nj[FFGH] * si[FMINV];
-
-  const float P_i = si[FP], P_j = nj[FP];
-  const float rho_sum = si[FRHO] + nj[FRHO];
-  const float P_sum = P_i + P_j + FL(1e-30);
-  const float inv_rhoP = 1.f / (rho_sum * P_sum);
-  const float rho_ij_inv = inv_rhoP * P_sum;
-  const float P_sum_inv = inv_rhoP * rho_sum;
-  const float alpha = si[FAL] + nj[FAL];
-  const float visc = FL(-0.25) * alpha * v_sig * mu_ij
-      * (si[FBAL] + nj[FBAL]) * rho_ij_inv;
-  const float visc_acc_term = FL(0.5) * visc
-      * (wi_dr * f_ij + wj_dr * f_ji) * r_inv;
-
-  const float P_over_rho2_i = si[FPR2] * f_ij;
-  const float P_over_rho2_j = nj[FPR2] * f_ji;
-  const float sph_acc_term = (P_over_rho2_i * wi_dr
-                              + P_over_rho2_j * wj_dr) * r_inv;
-  const float acc = sph_acc_term + visc_acc_term;
-
-  const float sph_du_term_i = P_over_rho2_i * dvdr * r_inv * wi_dr;
-  const float visc_du_term = FL(0.5) * visc_acc_term * dvdr_Hubble;
-
-  const float alpha_diff = (P_i * si[FAD] + P_j * nj[FAD]) * P_sum_inv;
-  const float v_diff = alpha_diff * FL(0.5) * (
-      sqrtf(FL(2.0) * fabsf(P_i - P_j) * rho_ij_inv)
-      + fabsf(p.v[P_FAC_MU] * r_inv * dvdr_Hubble));
-  const float diff_du_term = v_diff * (si[FU] - nj[FU]) * (
-      f_ij * wi_dr * si[FRHOINV] + f_ji * wj_dr * nj[FRHOINV]);
-
-  const float du_dt_i = sph_du_term_i + visc_du_term + diff_du_term;
-
+// the outputs every scheme's force writes from its acceleration and du/dt
+__device__ __forceinline__ ForceTerms force_out(
+    const float* nj, const PairKinematics& k, float dx0, float dx1,
+    float dx2, float acc, float u_dt) {
   const float m_j = nj[FM];
   ForceTerms t;
   t.a0 = -m_j * acc * dx0;
   t.a1 = -m_j * acc * dx1;
   t.a2 = -m_j * acc * dx2;
-  t.u_dt = du_dt_i * m_j;
-  t.h_dt = -m_j * dvdr * r_inv * nj[FRHOINV] * wi_dr;
-  t.v_sig = v_sig;
+  t.u_dt = u_dt;
+  t.h_dt = -m_j * k.dvdr * k.r_inv * nj[FRHOINV] * k.wi_dr;
+  t.v_sig = k.v_sig;
   return t;
 }
 
 // ---------------------------------------------------------------------------
-// force: 5 sums (a_hydro0-2, u_dt, h_dt), 2 maxes (v_sig, -neighbour bin)
+// SPH schemes: each struct holds its force terms (and the density hooks
+// DENSITY_NEEDS_U / N_DENSITY_EXTRA); NP_FORCE: the scheme's force
+// parameters, after the body's own (`sp`).
 // ---------------------------------------------------------------------------
-struct Force {
-  static constexpr int F = 22, NS = 5, NM = 2, NP = 6;
+
+// models/sph/sphenix.py force_terms (hydro_iact.h:343-476)
+struct Sphenix {
+  static constexpr bool DENSITY_NEEDS_U = false;
+  static constexpr int N_DENSITY_EXTRA = 0, NP_FORCE = 0;
+  template <class K>
+  static __device__ __forceinline__ ForceTerms force_terms(
+      const float* si, const float* nj, float dx0, float dx1, float dx2,
+      float r2, const BodyParams& p, const float*) {
+    const PairKinematics k = pair_kinematics<K>(si, nj, dx0, dx1, dx2, r2,
+                                                p);
+    const float r_inv = k.r_inv, wi_dr = k.wi_dr, wj_dr = k.wj_dr;
+    const float f_ij = 1.f - si[FFGH] * nj[FMINV];
+    const float f_ji = 1.f - nj[FFGH] * si[FMINV];
+
+    const float P_i = si[FP], P_j = nj[FP];
+    const float rho_sum = si[FRHO] + nj[FRHO];
+    const float P_sum = P_i + P_j + FL(1e-30);
+    const float inv_rhoP = 1.f / (rho_sum * P_sum);
+    const float rho_ij_inv = inv_rhoP * P_sum;
+    const float P_sum_inv = inv_rhoP * rho_sum;
+    const float alpha = si[FAL] + nj[FAL];
+    const float visc = FL(-0.25) * alpha * k.v_sig * k.mu_ij
+        * (si[FBAL] + nj[FBAL]) * rho_ij_inv;
+    const float visc_acc_term = FL(0.5) * visc
+        * (wi_dr * f_ij + wj_dr * f_ji) * r_inv;
+
+    const float P_over_rho2_i = si[FPR2] * f_ij;
+    const float P_over_rho2_j = nj[FPR2] * f_ji;
+    const float sph_acc_term = (P_over_rho2_i * wi_dr
+                                + P_over_rho2_j * wj_dr) * r_inv;
+    const float acc = sph_acc_term + visc_acc_term;
+
+    const float sph_du_term_i = P_over_rho2_i * k.dvdr * r_inv * wi_dr;
+    const float visc_du_term = FL(0.5) * visc_acc_term * k.dvdr_Hubble;
+
+    const float alpha_diff = (P_i * si[FAD] + P_j * nj[FAD]) * P_sum_inv;
+    const float v_diff = alpha_diff * FL(0.5) * (
+        sqrtf(FL(2.0) * fabsf(P_i - P_j) * rho_ij_inv)
+        + fabsf(p.v[P_FAC_MU] * r_inv * k.dvdr_Hubble));
+    const float diff_du_term = v_diff * (si[FU] - nj[FU]) * (
+        f_ij * wi_dr * si[FRHOINV] + f_ji * wj_dr * nj[FRHOINV]);
+
+    const float du_dt_i = sph_du_term_i + visc_du_term + diff_du_term;
+    return force_out(nj, k, dx0, dx1, dx2, acc, du_dt_i * nj[FM]);
+  }
+};
+
+// models/sph/minimal.py force_terms (hydro_iact.h:370-470): Monaghan
+// viscosity, rho_ij = (rho_i + rho_j) / 2, the alpha in the Balsara
+// factors, no diffusion
+struct Minimal {
+  static constexpr bool DENSITY_NEEDS_U = false;
+  static constexpr int N_DENSITY_EXTRA = 0, NP_FORCE = 0;
+  template <class K>
+  static __device__ __forceinline__ ForceTerms force_terms(
+      const float* si, const float* nj, float dx0, float dx1, float dx2,
+      float r2, const BodyParams& p, const float*) {
+    const PairKinematics k = pair_kinematics<K>(si, nj, dx0, dx1, dx2, r2,
+                                                p);
+    const float r_inv = k.r_inv, wi_dr = k.wi_dr, wj_dr = k.wj_dr;
+    const float f_ij = 1.f - si[FFGH] * nj[FMINV];
+    const float f_ji = 1.f - nj[FFGH] * si[FMINV];
+    const float rho_ij_inv = FL(2.0) / (si[FRHO] + nj[FRHO]);
+    const float visc = FL(-0.25) * k.v_sig * (si[FBAL] + nj[FBAL])
+        * k.mu_ij * rho_ij_inv;
+    const float visc_acc_term = FL(0.5) * visc
+        * (wi_dr * f_ij + wj_dr * f_ji) * r_inv;
+    const float P_over_rho2_i = si[FPR2] * f_ij;
+    const float P_over_rho2_j = nj[FPR2] * f_ji;
+    const float sph_acc_term = (P_over_rho2_i * wi_dr
+                                + P_over_rho2_j * wj_dr) * r_inv;
+    const float acc = sph_acc_term + visc_acc_term;
+    const float sph_du_term_i = P_over_rho2_i * k.dvdr * r_inv * wi_dr;
+    const float visc_du_term = FL(0.5) * visc_acc_term * k.dvdr_Hubble;
+    const float du_dt_i = sph_du_term_i + visc_du_term;
+    return force_out(nj, k, dx0, dx1, dx2, acc, du_dt_i * nj[FM]);
+  }
+};
+
+// models/sph/gadget2.py force_terms (hydro_iact.h:618-712): the entropy
+// formulation; u_dt is the raw entropy-generation sum (end_force
+// converts it)
+struct Gadget2 {
+  static constexpr bool DENSITY_NEEDS_U = false;
+  static constexpr int N_DENSITY_EXTRA = 0, NP_FORCE = 0;
+  template <class K>
+  static __device__ __forceinline__ ForceTerms force_terms(
+      const float* si, const float* nj, float dx0, float dx1, float dx2,
+      float r2, const BodyParams& p, const float*) {
+    const PairKinematics k = pair_kinematics<K>(si, nj, dx0, dx1, dx2, r2,
+                                                p);
+    const float r_inv = k.r_inv, wi_dr = k.wi_dr, wj_dr = k.wj_dr;
+    const float rho_ij_inv = FL(2.0) / (si[FRHO] + nj[FRHO]);
+    const float visc = FL(-0.25) * k.v_sig * k.mu_ij
+        * (si[FBAL] + nj[FBAL]) * rho_ij_inv;
+    const float visc_term = FL(0.5) * visc * (wi_dr + wj_dr) * r_inv;
+    const float sph_term = (si[FFGH] * si[FPR2] * wi_dr
+                            + nj[FFGH] * nj[FPR2] * wj_dr) * r_inv;
+    const float acc = visc_term + sph_term;
+    return force_out(nj, k, dx0, dx1, dx2, acc,
+                     nj[FM] * visc_term * k.dvdr_Hubble);
+  }
+};
+
+// the P-U equation of motion's pressure terms, shared by PressureEnergy
+// and AnarchyPU (hydro_iact.h:238-350); gm1 = gamma - 1
+struct PUPressure {
+  float sph_acc_term, sph_du_term_i;
+};
+
+__device__ __forceinline__ PUPressure pu_pressure(
+    const float* si, const float* nj, const PairKinematics& k, float gm1) {
+  const float u_i = si[FU], u_j = nj[FU];
+  const float f_ij = 1.f - si[FFGH] / fmaxf(nj[FM] * u_j, FL(1e-30));
+  const float f_ji = 1.f - nj[FFGH] / fmaxf(si[FM] * u_i, FL(1e-30));
+  const float pressure_inverse_i = 1.f / fmaxf(si[FP], FL(1e-30));
+  const float pressure_inverse_j = 1.f / fmaxf(nj[FP], FL(1e-30));
+  PUPressure q;
+  q.sph_acc_term = (u_j * u_i * gm1 * gm1
+                    * ((f_ij * pressure_inverse_i) * k.wi_dr
+                       + (f_ji * pressure_inverse_j) * k.wj_dr) * k.r_inv);
+  q.sph_du_term_i = gm1 * gm1 * u_j * u_i * (f_ij * pressure_inverse_i)
+      * k.wi_dr * k.dvdr * k.r_inv;
+  return q;
+}
+
+// models/sph/pressure_energy.py: the smoothed-pressure density extras and
+// force_terms, constant alpha in the Balsara factors; parameter gm1
+struct PressureEnergy {
+  static constexpr bool DENSITY_NEEDS_U = true;
+  static constexpr int N_DENSITY_EXTRA = 2, NP_FORCE = 1;
+  template <class K>
+  static __device__ __forceinline__ ForceTerms force_terms(
+      const float* si, const float* nj, float dx0, float dx1, float dx2,
+      float r2, const BodyParams& p, const float* sp) {
+    const PairKinematics k = pair_kinematics<K>(si, nj, dx0, dx1, dx2, r2,
+                                                p);
+    const float rho_ij_inv = FL(2.0) / (si[FRHO] + nj[FRHO]);
+    const float visc = FL(-0.25) * k.v_sig * k.mu_ij
+        * (si[FBAL] + nj[FBAL]) * rho_ij_inv;
+    const float visc_acc_term = FL(0.5) * visc * (k.wi_dr + k.wj_dr)
+        * k.r_inv;
+    const PUPressure q = pu_pressure(si, nj, k, sp[0]);
+    const float acc = q.sph_acc_term + visc_acc_term;
+    const float visc_du_term = FL(0.5) * visc_acc_term * k.dvdr_Hubble;
+    const float du_dt_i = q.sph_du_term_i + visc_du_term;
+    return force_out(nj, k, dx0, dx1, dx2, acc, du_dt_i * nj[FM]);
+  }
+};
+
+// models/sph/anarchy_pu.py force_terms (hydro_iact.h:330-440): the P-U
+// equation of motion with summed alphas and the soundspeed-triggered
+// diffusion; Pressure-Energy's density; parameter gm1
+struct AnarchyPU {
+  static constexpr bool DENSITY_NEEDS_U = true;
+  static constexpr int N_DENSITY_EXTRA = 2, NP_FORCE = 1;
+  template <class K>
+  static __device__ __forceinline__ ForceTerms force_terms(
+      const float* si, const float* nj, float dx0, float dx1, float dx2,
+      float r2, const BodyParams& p, const float* sp) {
+    const PairKinematics k = pair_kinematics<K>(si, nj, dx0, dx1, dx2, r2,
+                                                p);
+    const float rho_ij_inv = 1.f / (si[FRHO] + nj[FRHO]);
+    const float alpha = si[FAL] + nj[FAL];
+    const float visc = FL(-0.25) * alpha * k.v_sig * k.mu_ij
+        * (si[FBAL] + nj[FBAL]) * rho_ij_inv;
+    const float visc_acc_term = FL(0.5) * visc * (k.wi_dr + k.wj_dr)
+        * k.r_inv;
+    const PUPressure q = pu_pressure(si, nj, k, sp[0]);
+    const float acc = q.sph_acc_term + visc_acc_term;
+    const float visc_du_term = FL(0.5) * visc_acc_term * k.dvdr_Hubble;
+    const float v_diff = fmaxf(si[FCS] + nj[FCS] + k.mu_ij, 0.f);
+    const float alpha_diff = FL(0.5) * (si[FAD] + nj[FAD]);
+    const float diff_du_term = alpha_diff * p.v[P_FAC_MU] * v_diff
+        * (si[FU] - nj[FU]) * (k.wi_dr + k.wj_dr) * rho_ij_inv;
+    const float du_dt_i = q.sph_du_term_i + visc_du_term + diff_du_term;
+    return force_out(nj, k, dx0, dx1, dx2, acc, du_dt_i * nj[FM]);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// force: 5 sums (a_hydro0-2, u_dt, h_dt), 2 maxes (v_sig, -neighbour bin);
+// parameters: the kernel's 4, the cosmology's 2, then the scheme's
+// ---------------------------------------------------------------------------
+template <class S, class K>
+struct ForceT {
+  static constexpr int F = 22, NS = 5, NM = 2, NP = 6 + S::NP_FORCE;
   static __device__ __forceinline__ bool in_range(
       const float* si, const float* nj, float r2, const BodyParams& p) {
     return hydro_ok(si, nj, r2, p);
@@ -315,7 +595,8 @@ struct Force {
       const float* si, const float* nj, float dx0, float dx1, float dx2,
       float r2, const BodyParams& p, float* sums, float* maxes) {
     const bool ok = in_range(si, nj, r2, p);
-    const ForceTerms t = force_terms(si, nj, dx0, dx1, dx2, r2, p);
+    const ForceTerms t = S::template force_terms<K>(si, nj, dx0, dx1, dx2,
+                                                    r2, p, p.v + 6);
     sums[0] = t.a0;
     sums[1] = t.a1;
     sums[2] = t.a2;
@@ -334,10 +615,13 @@ constexpr int P_RCUT2 = 6, P_HINV = 7, P_H3INV = 8, P_RSINV = 9, P_G = 10;
 
 // ---------------------------------------------------------------------------
 // force + short-range gravity, fused: 9 sums (hydro 5 masked by the hydro
-// range, a_grav0-2 and pot masked by r_cut), 2 maxes; force fields + gm
+// range, a_grav0-2 and pot masked by r_cut), 2 maxes; force fields + gm;
+// parameters: the kernel's 4, the cosmology's 2, the gravity's 5, then
+// the scheme's
 // ---------------------------------------------------------------------------
-struct ForceGravity {
-  static constexpr int F = 23, NS = 9, NM = 2, NP = 11;
+template <class S, class K>
+struct ForceGravityT {
+  static constexpr int F = 23, NS = 9, NM = 2, NP = 11 + S::NP_FORCE;
   enum { GM = 22 };
   static __device__ __forceinline__ bool in_range(
       const float* si, const float* nj, float r2, const BodyParams& p) {
@@ -355,7 +639,8 @@ struct ForceGravity {
       const float* si, const float* nj, float dx0, float dx1, float dx2,
       float r2, const BodyParams& p, float* sums, float* maxes) {
     const bool ok_h = hydro_ok(si, nj, r2, p);
-    const ForceTerms t = force_terms(si, nj, dx0, dx1, dx2, r2, p);
+    const ForceTerms t = S::template force_terms<K>(si, nj, dx0, dx1, dx2,
+                                                    r2, p, p.v + 11);
     const float wh = ok_h ? 1.f : 0.f;
     const bool ok_g = r2 < p.v[P_RCUT2];
     float Fg, Pg;
@@ -378,6 +663,13 @@ struct ForceGravity {
     return ok_h || ok_g;
   }
 };
+
+// the packed and ring kernels' bodies, and the flat kernel's default
+// library: SPHENIX with the cubic spline
+using Density = DensityT<Sphenix, CubicSpline>;
+using Gradient = GradientT<CubicSpline>;
+using Force = ForceT<Sphenix, CubicSpline>;
+using ForceGravity = ForceGravityT<Sphenix, CubicSpline>;
 
 // ---------------------------------------------------------------------------
 // P2P gravity: fields (mask, off0-2, h, m); 4 sums (acc0-2, pot);
@@ -478,7 +770,7 @@ struct ChemSmooth {
       const BodyParams& p, float* sums, float*) {
     const float u2 = r2 * si[HINV] * si[HINV];
     float w, dw;
-    cubic_deval(sqrtf(u2), p, w, dw);
+    kernel_deval<CubicSpline>(sqrtf(u2), p, w, dw);
     const float mw = nj[M] * w;
     sums[0] = mw * nj[Z];
 #pragma unroll

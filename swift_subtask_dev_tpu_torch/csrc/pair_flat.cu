@@ -3,7 +3,10 @@
 // Replaces: swift_subtask_dev_tpu/ops/pallas_flat.py:268 pair_apply (the
 // Pallas TPU kernel, inner `kernel` at :408) for its six bodies
 // (csrc/pair_bodies.cuh): density, gradient, force, force + gravity, P2P
-// gravity and the limiter's timebin scan, and its cross-species mode
+// gravity and the limiter's timebin scan; the SPH bodies in each SPH
+// scheme's mode (the reference traces the scheme's term functions into
+// the kernel, ops/hydro_pallas.py:85, :140, :192, :288) under each
+// smoothing kernel; and its cross-species mode
 // (`fields_j`, :280-281): the i slots come from one species' tiles (W
 // slots a column) and the j rows from another species' AoS (Wj rows a
 // column) on the same column grid, with range words over the j species'
@@ -88,7 +91,11 @@
 // -fmad=false -shared -Xcompiler -fPIC (no --use_fast_math: expf, sqrtf
 // and divides stay IEEE; no FMA contraction, so every pair expression
 // rounds like its torch counterpart).  Bound with ctypes; each entry
-// returns a cudaError_t (cudaGetLastError() after the launch).
+// returns a cudaError_t (cudaGetLastError() after the launch).  Built as
+// is, the library holds SPHENIX with the cubic spline and the other
+// bodies; with -DSPH_SCHEME=<scheme struct> -DSPH_KERNEL=<kernel struct>
+// -DSPH_GRADIENT=<0|1> it holds one scheme's SPH bodies under one kernel
+// (a mode library, built when a run first asks for it).
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -619,6 +626,22 @@ int attributes(int* res) {
     return attributes<BODY>(res);                                          \
   }
 
+#ifdef SPH_SCHEME
+// a mode library (ops/pair_flat.py mode_library): the SPH bodies of one
+// scheme (SPH_SCHEME, a struct of csrc/pair_bodies.cuh) under one
+// smoothing kernel (SPH_KERNEL), with the gradient body when the scheme
+// has a gradient loop (SPH_GRADIENT)
+using ModeDensity = DensityT<SPH_SCHEME, SPH_KERNEL>;
+using ModeForce = ForceT<SPH_SCHEME, SPH_KERNEL>;
+using ModeForceGravity = ForceGravityT<SPH_SCHEME, SPH_KERNEL>;
+PAIR_FLAT_ENTRY(density, ModeDensity)
+#if SPH_GRADIENT
+using ModeGradient = GradientT<SPH_KERNEL>;
+PAIR_FLAT_ENTRY(gradient, ModeGradient)
+#endif
+PAIR_FLAT_ENTRY(force, ModeForce)
+PAIR_FLAT_ENTRY(force_gravity, ModeForceGravity)
+#else
 PAIR_FLAT_ENTRY(density, Density)
 PAIR_FLAT_ENTRY(gradient, Gradient)
 PAIR_FLAT_ENTRY(force, Force)
@@ -632,3 +655,4 @@ PAIR_FLAT_ENTRY(probe_b, ProbeB)
 PAIR_FLAT_ENTRY(probe_c, ProbeC)
 PAIR_FLAT_ENTRY(probe_d, ProbeD)
 PAIR_FLAT_ENTRY(probe_e, ProbeE)
+#endif

@@ -1,4 +1,4 @@
-"""The engine — one-species SPHENIX (+ P3M) gas on a pair-engine grid.
+"""The engine — one-species SPH (+ P3M) gas on a pair-engine grid.
 
 Port of the reference's ``engine.py`` for three backends: ``"flat"`` (the
 column grid and the flat pair kernel; the main path), ``"pallas"`` (the
@@ -17,6 +17,15 @@ control flow becomes host control: the ghost's ``while_loop`` is a Python
 loop that reads ``conv.all()`` each trip; the rebucket's ``cond`` is an
 ``if``; ``multi_step``'s ``scan`` is a Python loop that keeps the bin
 deviation flag on the device until ``run_fixed_dt`` reads it once.
+
+The step runs any ported SPH scheme (``models/sph``: SPHENIX, Minimal,
+Gadget2, Pressure-Energy, Anarchy-PU, under any of the six smoothing
+kernels) through ``p.mod``'s hooks, where and as the reference's engine
+calls them: the ghost's ``end_density`` / ``ghost_h_update``, the
+gradient loop only when ``HAS_GRADIENT_LOOP``, ``prepare_force`` every
+step, ``end_force`` (Gadget2 converts its raw entropy sum there), the
+drift's ``predict_extra`` and the kicks' ``kick_extra``.  The 27-cell
+backends run SPHENIX with the cubic spline only.
 
 A step that hits a capacity or coverage wall raises :class:`RegridNeeded`;
 ``Engine.step`` restores the pre-step state, rebuilds the grid from the
@@ -45,7 +54,8 @@ import torch
 
 from .grid.cellgrid import (CellGrid, bucket_fields, global_positions,
                             rebucket_offsets)
-from .models.sph import sphenix
+from .models.sph import scheme_name
+from .models.sph.kernels import kernel_name
 from .models.sph.sphenix import CosmoFactors, SPHENIXParams
 from .ops import hydro_flat, stencil
 from .utils import timeline as tl
@@ -125,6 +135,18 @@ class EngineConfig:
     regrid_cooldown: int = 20
 
 
+def refuse_unported_mode(p, where: str) -> None:
+    """Raise unless ``p`` is SPHENIX with the cubic spline, the one SPH
+    mode ``where`` (the 27-cell backends, the multi-species engine) runs;
+    the others are ported on the flat backend of :class:`Engine` only."""
+    scheme, kernel = scheme_name(p), kernel_name(p.kernel)
+    if (scheme, kernel) != ("sphenix", "cubic-spline"):
+        raise NotImplementedError(
+            f"{where} runs SPHENIX with the cubic spline only: the SPH "
+            f"scheme {scheme!r} with the kernel {kernel!r} is not ported "
+            f"there yet (use Engine with backend='flat')")
+
+
 class RegridNeeded(RuntimeError):
     """A step hit a capacity/coverage wall (cell overflow or h outgrowing
     the cell edge): the host rebuilds the grid and retries the step."""
@@ -169,18 +191,20 @@ def _ghost_density(grid: CellGrid, p: SPHENIXParams, cosmo: CosmoFactors,
     reference's 27-cell engines recompute every slot each trip).  Returns
     (h, dens, n_iter)."""
     kroot_eps = float(np.float32(p.kernel.root) * np.float32(1.0 + 1e-5))
+    extra_keys = p.mod.DENSITY_EXTRA_KEYS
 
     def density_pass(h, act=None):
         dens = hydro_flat.density_loop(grid, {**s, "h": h}, p,
                                        active_i=act, engine=engine)
-        full = sphenix.end_density(p, {**s, "h": h, **dens}, cosmo)
+        full = p.mod.end_density(p, {**s, "h": h, **dens}, cosmo)
         return {k: full[k] for k in
-                ("rho", "rho_dh", "wcount", "wcount_dh", "div_v", "rot_v")}
+                ("rho", "rho_dh", "wcount", "wcount_dh", "div_v", "rot_v")
+                + extra_keys}
 
     def h_update(h, d, left, right):
         has_ngb = d["wcount"] * (h * h * h) > kroot_eps
-        return sphenix.ghost_h_update(p, h, d["wcount"], d["wcount_dh"],
-                                      left, right, has_ngb)
+        return p.mod.ghost_h_update(p, h, d["wcount"], d["wcount_dh"],
+                                    left, right, has_ngb)
 
     h = s["h"]
     left = torch.zeros_like(h)
@@ -225,28 +249,30 @@ def _gas_loops(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
     s = {**s, "h": torch.where(active, h_new, s["h"])}
     for k, v in dens.items():
         s[k] = _where_active(active, v, s[k])
-    s_fb = sphenix.no_neighbours_fallback(p, s)
+    s_fb = p.mod.no_neighbours_fallback(p, s)
     for k in ("rho", "v_sig", "wcount", "rho_dh", "wcount_dh", "div_v",
-              "laplace_u", "rot_v"):
+              "laplace_u", "rot_v") + p.mod.DENSITY_EXTRA_KEYS:
         s[k] = _where_active(active, s_fb[k], s[k])
 
-    # --- prepare gradient + gradient loop ----------------------------------
-    rg = sphenix.reset_gradient(sphenix.prepare_gradient(p, s, cosmo))
+    # --- prepare gradient + gradient loop (schemes that have one) -----------
+    rg = p.mod.reset_gradient(p.mod.prepare_gradient(p, s, cosmo))
     for k in ("f_gradh", "pressure", "soundspeed", "balsara", "v_sig",
               "alpha_visc_max_ngb"):
         s[k] = torch.where(active, rg[k], s[k])
-    grad = hydro_flat.gradient_loop(grid, s, p, cosmo, active_i=active,
-                                    engine=engine)
-    for k, v in grad.items():
-        s[k] = torch.where(active, v, s[k])
-    eg = sphenix.end_gradient(s)
-    s["laplace_u"] = torch.where(active, eg["laplace_u"], s["laplace_u"])
+    if p.mod.HAS_GRADIENT_LOOP:
+        grad = hydro_flat.gradient_loop(grid, s, p, cosmo, active_i=active,
+                                        engine=engine)
+        for k, v in grad.items():
+            s[k] = torch.where(active, v, s[k])
+        eg = p.mod.end_gradient(s)
+        s["laplace_u"] = torch.where(active, eg["laplace_u"],
+                                     s["laplace_u"])
 
     # --- prepare force (alpha evolution) + force loop -----------------------
-    pf = sphenix.prepare_force(p, s, cosmo, dt_alpha_table[tb])
+    pf = p.mod.prepare_force(p, s, cosmo, dt_alpha_table[tb])
     for k in ("alpha_visc", "div_v_prev", "alpha_diff"):
         s[k] = torch.where(active, pf[k], s[k])
-    ra = sphenix.reset_acceleration(s)
+    ra = p.mod.reset_acceleration(s)
     for k in ("a_hydro", "u_dt", "h_dt"):
         s[k] = _where_active(active, ra[k], s[k])
 
@@ -261,8 +287,10 @@ def _gas_loops(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
                                       engine=engine)
     for k, v in force.items():
         s[k] = _where_active(active, v, s[k])
-    ef = sphenix.end_force(p, s)
+    # u_dt too: Gadget2 converts its raw entropy sum here (hydro.h:868)
+    ef = p.mod.end_force(p, s)
     s["h_dt"] = torch.where(active, ef["h_dt"], s["h_dt"])
+    s["u_dt"] = torch.where(active, ef["u_dt"], s["u_dt"])
     return s, n_ghost_iter
 
 
@@ -304,18 +332,18 @@ def _gas_kdk(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
     a_tot = s["a_hydro"] + s["a_grav"]
     v_full = s["v_full"] + a_tot * T.dt_kick2[tb][..., None]
     s = {**s, "v_full": _where_active(active, v_full, s["v_full"])}
-    ke = sphenix.kick_extra(p, s, cosmo, T.dt_therm2[tb])
+    ke = p.mod.kick_extra(p, s, cosmo, T.dt_therm2[tb])
     for k in ("u_full", "u_dt"):
         s[k] = torch.where(active, ke[k], s[k])
 
     # reset predicted values at the kick point (runner_time_integration:463)
-    rp = sphenix.reset_predicted_values(p, s)
+    rp = p.mod.reset_predicted_values(p, s)
     for k in ("v", "u", "pressure", "soundspeed", "v_sig"):
         s[k] = _where_active(active, rp[k], s[k])
 
     # --- timestep: pick the new bin (runner_do_timestep, timestep.h) --------
-    new_dt = torch.minimum(sphenix.compute_timestep(p, s, cosmo),
-                           sphenix.timestep_h_change_limit(p, s))
+    new_dt = torch.minimum(p.mod.compute_timestep(p, s, cosmo),
+                           p.mod.timestep_h_change_limit(p, s))
     if cfg.with_self_gravity:
         a = s["a_hydro"] + s["a_grav"] + s["a_grav_mesh"]
         a_norm = torch.sqrt(a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1]
@@ -346,7 +374,7 @@ def _gas_kdk(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
     a_tot = s["a_hydro"] + s["a_grav"]
     v_full = s["v_full"] + a_tot * T.dt_kick1[tb1][..., None]
     s["v_full"] = _where_active(active, v_full, s["v_full"])
-    ke1 = sphenix.kick_extra(p, s, cosmo, T.dt_therm1[tb1])
+    ke1 = p.mod.kick_extra(p, s, cosmo, T.dt_therm1[tb1])
     for k in ("u_full", "u_dt"):
         s[k] = torch.where(active, ke1[k], s[k])
 
@@ -383,7 +411,7 @@ def apply_wake(p: SPHENIXParams, cosmo: CosmoFactors, s: Dict,
     a_tot = s["a_hydro"] + s["a_grav"]
     v_w = s["v_full"] + a_tot * dv[..., None]
     s = {**s, "v_full": torch.where(wake[..., None], v_w, s["v_full"])}
-    ke_w = sphenix.kick_extra(p, s, cosmo, du)
+    ke_w = p.mod.kick_extra(p, s, cosmo, du)
     for k in ("u_full", "u_dt"):
         s[k] = torch.where(wake, ke_w[k], s[k])
     s["time_bin"] = torch.where(wake, new_bin_w, s["time_bin"])
@@ -420,7 +448,7 @@ def hydro_step(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
     s = {**s,
          "off": s["off"] + s["v_full"] * T.dt_drift * s["mask"][..., None],
          "v": s["v"] + a_tot * T.dt_drift}
-    s = sphenix.predict_extra(p, s, cosmo, T.dt_drift, T.dt_therm_drift)
+    s = p.mod.predict_extra(p, s, cosmo, T.dt_drift, T.dt_therm_drift)
 
     # --- rebucket (space_rebuild analog) ------------------------------------
     reach = torch.clamp_min(
@@ -486,13 +514,15 @@ def _init_pass(grid, p, cfg, gravity_fn, cosmo, s, T):
     s = {**s, "h": torch.where(active, h_new, s["h"])}
     for k, v in dens.items():
         s[k] = _where_active(active, v, s[k])
-    s = sphenix.no_neighbours_fallback(p, s)
-    s = sphenix.reset_gradient(sphenix.prepare_gradient(p, s, cosmo))
-    s = {**s, **hydro_flat.gradient_loop(grid, s, p, cosmo, engine=engine)}
-    s = sphenix.end_gradient(s)
-    s = sphenix.reset_acceleration(sphenix.prepare_force(p, s, cosmo, 0.0))
+    s = p.mod.no_neighbours_fallback(p, s)
+    s = p.mod.reset_gradient(p.mod.prepare_gradient(p, s, cosmo))
+    if p.mod.HAS_GRADIENT_LOOP:
+        s = {**s, **hydro_flat.gradient_loop(grid, s, p, cosmo,
+                                             engine=engine)}
+        s = p.mod.end_gradient(s)
+    s = p.mod.reset_acceleration(p.mod.prepare_force(p, s, cosmo, 0.0))
     s = {**s, **hydro_flat.force_loop(grid, s, p, cosmo, engine=engine)}
-    s = sphenix.end_force(p, s)
+    s = p.mod.end_force(p, s)
 
     if gravity_fn is not None:
         a_grav, pot = gravity_fn(s)
@@ -500,8 +530,8 @@ def _init_pass(grid, p, cfg, gravity_fn, cosmo, s, T):
 
     # initial timestep + bins
     new_dt = torch.clamp_max(
-        torch.minimum(sphenix.compute_timestep(p, s, cosmo),
-                      sphenix.timestep_h_change_limit(p, s)),
+        torch.minimum(p.mod.compute_timestep(p, s, cosmo),
+                      p.mod.timestep_h_change_limit(p, s)),
         _f32(cfg.dt_max))
     too_small = active & (new_dt < cfg.dt_min)
     new_bin = torch.clamp(bin_from_dt(new_dt, T.time_base_inv), 1, NBINS)
@@ -513,7 +543,7 @@ def _init_pass(grid, p, cfg, gravity_fn, cosmo, s, T):
     a_tot = s["a_hydro"] + s["a_grav"]
     s["v_full"] = s["v_full"] + a_tot * dt_k1[..., None] \
         * s["mask"][..., None]
-    ke = sphenix.kick_extra(p, s, cosmo, dt_k1 * s["mask"])
+    ke = p.mod.kick_extra(p, s, cosmo, dt_k1 * s["mask"])
     s = {**s, "u_full": ke["u_full"], "u_dt": ke["u_dt"]}
 
     diag = {
@@ -684,6 +714,8 @@ class Engine:
         if cfg.backend not in BACKENDS:
             raise ValueError(f"backend {cfg.backend!r} is not ported "
                              f"(have {sorted(BACKENDS)})")
+        if cfg.backend != "flat":
+            refuse_unported_mode(sph, f"the {cfg.backend!r} backend")
         self.device = torch.device(device)
         self.grid = grid
         self.sph = sph
@@ -773,6 +805,9 @@ class Engine:
                                            device=dev),
             "drift_accum": torch.zeros((), dtype=F32, device=dev),
         }
+        # scheme-specific state (Pressure-Energy's smoothed pressure)
+        for k in self.sph.mod.EXTRA_STATE_KEYS:
+            self.state.setdefault(k, z())
 
     # --- split PM-mesh timestep (kick.h:255, engine.c:2406) ----------------
     def _kick_fac(self, lo: int, hi: int) -> float:

@@ -53,7 +53,8 @@ import torch
 from .engine import (Engine, EngineConfig, StepTables, NBINS, F32,
                      I32, _bin_counts, _dm_kdk, _dm_tiles, _f32, _gas_kdk,
                      _gas_loops, _pad_slots, _rebucket_phase, _tb_index,
-                     _where_active, apply_wake, bin_from_dt)
+                     _where_active, apply_wake, bin_from_dt,
+                     refuse_unported_mode)
 from .grid.cellgrid import CellGrid, bucket_fields
 from .models.sph import sphenix
 from .models.sph.sphenix import CosmoFactors, SPHENIXParams
@@ -772,6 +773,7 @@ class MultiEngine(Engine):
                 f"MultiEngine: backend {cfg.backend!r} not ported; the "
                 "port's multi-species engine runs on 'flat' only (ROADMAP.md,"
                 " queue 1 item 9)")
+        refuse_unported_mode(sph, "MultiEngine")
         super().__init__(grid, sph, cfg, time_begin, time_end,
                          device=device, gravity_fn=gravity_fn,
                          mesh_fn=mesh_fn, mesh_dt_scale=mesh_dt_scale,

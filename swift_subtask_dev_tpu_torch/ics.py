@@ -1,9 +1,10 @@
 """Initial conditions (numpy, seeded).
 
-Copies of ``bcc_lattice``, ``uniform_box_ic`` and ``sedov_ic`` from the
-reference's ``ics.py``: the same lattice, the same ``default_rng(seed)``
-jitter and the same blast injection, so both packages start from
-identical particles; and ``zeldovich`` with the gas and DM lattices of
+Copies of ``bcc_lattice``, ``cubic_lattice``, ``uniform_box_ic``,
+``sod_shock_ic`` and ``sedov_ic`` from the reference's ``ics.py``: the
+same lattices, the same ``default_rng(seed)`` jitter, the same shock tube
+and the same blast injection, so both packages start from identical
+particles; and ``zeldovich`` with the gas and DM lattices of
 ``examples/small_cosmo_volume/make_ics.py``, returned as arrays.
 """
 
@@ -41,6 +42,59 @@ def uniform_box_ic(n: int = 16, rho: float = 1.0, u0: float = 1.0,
     v = np.zeros((N, 3), np.float32)
     return {"pos": pos, "m": m, "u": u, "h": h, "v": v, "box": box,
             "gamma": 5 / 3}
+
+
+def cubic_lattice(n: Tuple[int, int, int], box: Tuple[float, float, float],
+                  origin=(0.0, 0.0, 0.0)) -> np.ndarray:
+    """Simple cubic lattice: nx*ny*nz cell-centred sites in the box."""
+    nx, ny, nz = n
+    dx = np.asarray(box, np.float64) / np.asarray(n, np.float64)
+    g = np.stack(np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz),
+                             indexing="ij"), -1).reshape(-1, 3)
+    return (g.astype(np.float64) + 0.5) * dx + np.asarray(origin,
+                                                          np.float64)
+
+
+def sod_shock_ic(n_l: int = 32, y_aspect: float = 0.5, gamma: float = 5 / 3,
+                 eta: float = 1.2348, lattice: str = "bcc"):
+    """SodShock_3D ICs (examples/HydroTests/SodShock_3D/makeIC.py behavior).
+
+    Box [0,2]x[0,Y]x[0,Y]; left half rho=1, P=1; right half rho=0.125,
+    P=0.1; equal-mass particles (left lattice spacing a, right 2a).
+    n_l = number of left-lattice spacings per unit length.
+    """
+    a = 1.0 / n_l
+    Y = y_aspect
+    ny = max(2, int(round(Y / a)))
+    Y = ny * a  # snap so lattices tile the box exactly
+    box = (2.0, Y, Y)
+    lat = bcc_lattice if lattice == "bcc" else cubic_lattice
+
+    pos_l = lat((n_l, ny, ny), (1.0, Y, Y))
+    pos_r = lat((n_l // 2, ny // 2, ny // 2), (1.0, Y, Y),
+                origin=(1.0, 0.0, 0.0))
+    pos = np.concatenate([pos_l, pos_r])
+    n_left = len(pos_l)
+
+    rho_l, P_l = 1.0, 1.0
+    rho_r, P_r = 0.125, 0.1
+    vol_half = 1.0 * Y * Y
+    m = np.full(len(pos), rho_l * vol_half / n_left, np.float64)
+    u = np.empty(len(pos))
+    u[:n_left] = P_l / ((gamma - 1) * rho_l)
+    u[n_left:] = P_r / ((gamma - 1) * rho_r)
+    # per-particle spacing for initial h
+    spacing = np.empty(len(pos))
+    ppc_l = 2 if lattice == "bcc" else 1  # particles per lattice cell
+    spacing[:n_left] = a / ppc_l ** (1 / 3)
+    spacing[n_left:] = 2 * a / ppc_l ** (1 / 3)
+    h = eta * spacing
+    v = np.zeros((len(pos), 3))
+    return {
+        "pos": pos, "m": m.astype(np.float32), "u": u.astype(np.float32),
+        "h": h.astype(np.float32), "v": v.astype(np.float32), "box": box,
+        "gamma": gamma,
+    }
 
 
 def sedov_ic(n: int = 32, E0: float = 1.0, n_inject: int = 15,

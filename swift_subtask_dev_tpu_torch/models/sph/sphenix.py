@@ -12,11 +12,21 @@ in the same f32 operation order:
 
 Everything is nonsym: each particle accumulates its own side of a pair.
 State dicts map field names to tensors; functions return new dicts.
+
+``SPHENIXParams.mod`` is this module: the scheme protocol the engine and
+the loops dispatch through, which every scheme of ``models/sph``
+declares in full: ``NAME`` (its SPH:scheme), ``PARAMS``, ``CUDA_STRUCT``
+(its struct in ``csrc/pair_bodies.cuh``), ``HAS_GRADIENT_LOOP``,
+``DENSITY_NEEDS_U`` (u_j in the density body's fields),
+``DENSITY_EXTRA_KEYS`` (its sums after the eight), ``EXTRA_STATE_KEYS``,
+``force_params(p)`` (the force body's parameters after the common ones),
+the term functions and the lifecycle hooks.
 """
 
 from __future__ import annotations
 
 import math
+import sys
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -24,6 +34,13 @@ import torch
 
 from .eos import IdealGas
 from .kernels import CUBIC_SPLINE, SPHKernel
+
+NAME = "sphenix"
+CUDA_STRUCT = "Sphenix"
+HAS_GRADIENT_LOOP = True
+DENSITY_NEEDS_U = False
+DENSITY_EXTRA_KEYS = ()
+EXTRA_STATE_KEYS = ()
 
 HYDRO_DIM = 3.0
 HYDRO_DIM_INV = 1.0 / 3.0
@@ -70,6 +87,13 @@ class SPHENIXParams:
     @property
     def log_max_h_change(self) -> float:
         return math.log(self.max_volume_change ** HYDRO_DIM_INV)
+
+    @property
+    def mod(self):
+        """The scheme module implementing this params object: the engine
+        and the loops dispatch every scheme hook through it (the
+        reference's compile-time scheme selection, hydro.h:32-80)."""
+        return _THIS_MODULE
 
 
 class CosmoFactors(NamedTuple):
@@ -237,6 +261,14 @@ def _safe_h(s):
     if "mask" in s:
         h = torch.where(s["mask"] > 0, h, 1.0)
     return torch.clamp_min(h, 1e-30)
+
+
+def init_part(s):
+    """Zero density-loop accumulators (hydro_init_part, hydro.h:553)."""
+    z = torch.zeros_like(s["rho"])
+    return {**s, "wcount": z, "wcount_dh": z, "rho": z, "rho_dh": z,
+            "rot_v": torch.zeros_like(s["rot_v"]), "div_v": z,
+            "laplace_u": z}
 
 
 def end_density(p: SPHENIXParams, s, cosmo: CosmoFactors):
@@ -478,3 +510,12 @@ def no_neighbours_fallback(p: SPHENIXParams, s):
             "div_v": w("div_v", 0.0),
             "laplace_u": w("laplace_u", 0.0),
             "rot_v": torch.where(none[..., None], 0.0, s["rot_v"])}
+
+
+def force_params(p) -> tuple:
+    """The force body's own parameters: none."""
+    return ()
+
+
+PARAMS = SPHENIXParams
+_THIS_MODULE = sys.modules[__name__]

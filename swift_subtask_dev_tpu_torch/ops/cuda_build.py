@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernel libraries (nvcc + ctypes).
 
-Each library is one ``csrc/<name>.cu`` file plus the headers it includes.
+Each library is one ``csrc/<name>.cu`` file plus the headers it includes,
+with the library's own preprocessor flags (``flags``, e.g. the flat
+kernel's mode libraries: one SPH scheme under one smoothing kernel).
 It is compiled at first use by nvcc for sm_90a (IEEE math: no fast math,
 no FMA contraction) into the gitignored ``build/`` directory, under a name
-keyed by its sources, ``NVCC_FLAGS`` and the compiler's version, so a
-change to any of them rebuilds it.  Its entries have plain C interfaces,
-are bound with ctypes and return ``cudaGetLastError()``.
+keyed by its sources, its flags, ``NVCC_FLAGS`` and the compiler's
+version, so a change to any of them rebuilds it.  Its entries have plain
+C interfaces, are bound with ctypes and return ``cudaGetLastError()``.
 :func:`build_all` starts one nvcc per library, all at once.
 """
 
@@ -35,13 +37,16 @@ def nvcc() -> str:
 
 class KernelLibrary:
     """One kernel library: ``sources[0]`` is compiled, the rest are the
-    headers it includes (they key the build too).  ``bind(cdll)`` sets the
-    entries' ctypes signatures."""
+    headers it includes (they key the build too), with the nvcc ``flags``
+    of this library.  ``bind(cdll)`` sets the entries' ctypes
+    signatures."""
 
     def __init__(self, name: str, sources: Tuple[str, ...],
-                 bind: Callable[[ctypes.CDLL], None]):
+                 bind: Callable[[ctypes.CDLL], None],
+                 flags: Tuple[str, ...] = ()):
         self.name = name
         self.sources = sources
+        self.flags = tuple(flags)
         self._bind = bind
         self.handle: Optional[ctypes.CDLL] = None
         self.build_log = ""
@@ -52,7 +57,7 @@ class KernelLibrary:
         key = hashlib.sha256()
         for src in self.sources:
             key.update((CSRC / src).read_bytes())
-        key.update(" ".join(NVCC_FLAGS).encode())
+        key.update(" ".join(NVCC_FLAGS + list(self.flags)).encode())
         ver = subprocess.run([nvcc_path, "--version"], capture_output=True,
                              text=True, check=True).stdout
         key.update(ver.encode())
@@ -84,7 +89,8 @@ def build_all(libs: Sequence[KernelLibrary],
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
         os.close(fd)
-        cmd = [nv, *NVCC_FLAGS, "-o", tmp, str(CSRC / lib.sources[0])]
+        cmd = [nv, *NVCC_FLAGS, *lib.flags, "-o", tmp,
+               str(CSRC / lib.sources[0])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((lib, path, tmp, cmd, proc, time.perf_counter()))

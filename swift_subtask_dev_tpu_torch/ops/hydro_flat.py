@@ -1,4 +1,4 @@
-"""SPHENIX hydro, P2P gravity and limiter loops on the pair engines.
+"""SPH hydro, P2P gravity and limiter loops on the pair engines.
 
 Port of the reference's ``ops/hydro_pallas.py``: density, gradient and
 force on any of the three pair engines (``engine="flat"``: the
@@ -16,6 +16,16 @@ the 27-cell engines every slot that is not active (the reference's
 27-cell engines recompute every slot); the callers merge the results into
 active particles only.
 
+The SPH loops take any ported scheme (``p.mod``: SPHENIX, Minimal,
+Gadget2, Pressure-Energy, Anarchy-PU) under any of the six smoothing
+kernels, as the reference's loops trace ``p.mod``'s term functions into
+the kernel: the density body reads u_j and adds the scheme's
+``DENSITY_EXTRA_KEYS`` sums when ``DENSITY_NEEDS_U``; every scheme's
+force shares one field list.  On the flat engine each (scheme, kernel)
+pair is a mode of K1 (``PairBody.mode``, its own CUDA library); the
+27-cell engines run SPHENIX with the cubic spline only and refuse
+anything else.
+
 Conventions kept from the reference: padded slots hold division-safe
 fills (``_san``: h, m, rho, P = 1); the gravity mass is ``m * mask``; the
 minimum neighbour bin is reduced as the max of the negated bin, with
@@ -30,8 +40,8 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ..grid.cellgrid import CellGrid
-from ..models.sph import sphenix
-from ..models.sph.kernels import CUBIC_SPLINE
+from ..models.sph import scheme_name, sphenix  # noqa: F401
+from ..models.sph.kernels import CUBIC_SPLINE, kernel_name
 from ..models.sph.sphenix import CosmoFactors, SPHENIXParams
 from ..subgrid.chemistry import N_ELEMENTS
 from . import p2p_gravity as pg
@@ -61,6 +71,11 @@ def _apply(engine: str, grid: CellGrid, pp: PairPass, active_i=None):
     """Run a pass on the named engine, on the ``active_i`` subset."""
     if engine == "flat":
         return pair_flat.pair_apply(grid, pp, active_i)
+    if pp.body.mode:
+        raise NotImplementedError(
+            f"the {engine} pair engine runs SPHENIX with the cubic spline "
+            f"only: its {pp.body.name} body in the mode {pp.body.mode!r} "
+            f"(SPH scheme/kernel) is not ported yet")
     if engine == "packed":
         return pair_packed.pair_apply(grid, pp, active_i)
     if engine == "ring":
@@ -83,12 +98,19 @@ def _san(s, key, fill=1.0):
     return torch.where(s["mask"] > 0, s[key], fill)
 
 
-def _kernel_params(p: SPHENIXParams):
-    """(gamma2, gamma_inv, g3, g4): the cubic-spline constants the CUDA
-    bodies take (the kernel form itself is compiled in)."""
-    if p.kernel != CUBIC_SPLINE:
-        raise ValueError(f"flat CUDA bodies implement the cubic spline "
-                         f"only, not {p.kernel.name}")
+def sph_mode(p) -> str:
+    """K1's mode for the SPH bodies of ``p`` (``PairBody.mode``):
+    ``"<SPH:scheme>/<SPH:kernel>"``, or "" for SPHENIX with the cubic
+    spline (the default library)."""
+    scheme, kernel = scheme_name(p), kernel_name(p.kernel)
+    if (scheme, kernel) == ("sphenix", "cubic-spline"):
+        return ""
+    return f"{scheme}/{kernel}"
+
+
+def _kernel_params(p):
+    """(gamma2, gamma_inv, g3, g4): the kernel's constants the CUDA bodies
+    take (the kernel's polynomial is compiled into its mode)."""
     k = p.kernel
     return (float(k.gamma2), k.gamma_inv, k.g3, k.g4)
 
@@ -132,7 +154,7 @@ def _force_fields(s: Dict) -> Dict[str, torch.Tensor]:
 
 def _force_terms(p, cosmo, sf, nf, dx, r2):
     dv = tuple(sf(f"v{k}") - nf(f"v{k}") for k in range(3))
-    return sphenix.force_terms(
+    return p.mod.force_terms(
         p, dx, r2, sf("hinv"), nf("hinv"), sf("m"), nf("m"),
         sf("minv"), nf("minv"), dv,
         sf("rho"), nf("rho"), sf("rhoinv"), nf("rhoinv"),
@@ -152,27 +174,42 @@ def _hydro_ok(gamma2, sf, nf, r2):
 # ---------------------------------------------------------------------------
 
 def density_pass(s: Dict, p: SPHENIXParams) -> PairPass:
+    """The density body; a scheme whose density reads u_j
+    (``DENSITY_NEEDS_U``) adds u to the fields and its
+    ``DENSITY_EXTRA_KEYS`` sums after the eight."""
     fields = _common_fields(s)
     _vec(fields, s, "v")
     fields["h"] = _san(s, "h")
     fields["hinv"] = 1.0 / fields["h"]
     fields["m"] = s["m"]
+    extra_keys = p.mod.DENSITY_EXTRA_KEYS
+    needs_u = p.mod.DENSITY_NEEDS_U
+    if needs_u:
+        fields["u"] = _san(s, "u", 0.0)
     gamma2 = float(p.kernel.gamma2)
 
     def fn(sf, nf, dx, r2):
         h_i = sf("h")
         ok = r2 < gamma2 * h_i * h_i
         dv = tuple(sf(f"v{k}") - nf(f"v{k}") for k in range(3))
-        t = sphenix.density_terms(p, dx, r2, sf("hinv"), nf("m"), dv)
+        uj = (nf("u"),) if needs_u else ()
+        t = p.mod.density_terms(p, dx, r2, sf("hinv"), nf("m"), dv, *uj)
         return ok, [t["rho"], t["rho_dh"], t["wcount"], t["wcount_dh"],
-                    t["div_v"], t["rot_v0"], t["rot_v1"], t["rot_v2"]], []
+                    t["div_v"], t["rot_v0"], t["rot_v1"], t["rot_v2"]] + [
+                        t[k] for k in extra_keys], []
 
-    body = PairBody("density", DENSITY_FIELDS, 8, 0, _kernel_params(p), fn)
+    body = PairBody("density",
+                    DENSITY_FIELDS + (("u",) if needs_u else ()),
+                    8 + len(extra_keys), 0, _kernel_params(p), fn,
+                    sph_mode(p))
     return PairPass(body, fields, range_scale=float(p.kernel.gamma))
 
 
 def gradient_pass(s: Dict, p: SPHENIXParams,
                   cosmo: CosmoFactors) -> PairPass:
+    if not p.mod.HAS_GRADIENT_LOOP:
+        raise ValueError(f"the SPH scheme {scheme_name(p)!r} has no "
+                         f"gradient loop")
     fields = _common_fields(s)
     _vec(fields, s, "v")
     fields["h"] = _san(s, "h")
@@ -188,14 +225,15 @@ def gradient_pass(s: Dict, p: SPHENIXParams,
         h_i = sf("h")
         ok = r2 < gamma2 * h_i * h_i
         dv = tuple(sf(f"v{k}") - nf(f"v{k}") for k in range(3))
-        t = sphenix.gradient_terms(
+        t = p.mod.gradient_terms(
             p, dx, r2, sf("hinv"), nf("m"), dv, sf("u"), nf("u"),
             nf("rhoinv"), sf("cs"), nf("cs"), nf("av"), cosmo)
         return ok, [t["sum"]["laplace_u"]], \
             [t["max"]["v_sig"], t["max"]["alpha_visc_max_ngb"]]
 
     body = PairBody("gradient", GRADIENT_FIELDS, 1, 2,
-                    _kernel_params(p) + _cosmo_params(cosmo), fn)
+                    _kernel_params(p) + _cosmo_params(cosmo), fn,
+                    sph_mode(p))
     return PairPass(body, fields, range_scale=float(p.kernel.gamma))
 
 
@@ -215,7 +253,8 @@ def force_pass(s: Dict, p: SPHENIXParams, cosmo: CosmoFactors) -> PairPass:
         return ok, sums, [t["max"]["v_sig"], neg_tb]
 
     body = PairBody("force", FORCE_FIELDS, 5, 2,
-                    _kernel_params(p) + _cosmo_params(cosmo), fn)
+                    _kernel_params(p) + _cosmo_params(cosmo)
+                    + p.mod.force_params(p), fn, sph_mode(p))
     return PairPass(body, fields, range_scale=float(p.kernel.gamma),
                     sym_range=True)
 
@@ -251,7 +290,8 @@ def force_gravity_pass(s: Dict, p: SPHENIXParams, cosmo: CosmoFactors,
         return ok_h | ok_g, sums, [v_sig, neg_tb]
 
     body = PairBody("force_gravity", FORCE_GRAVITY_FIELDS, 9, 2,
-                    _kernel_params(p) + _cosmo_params(cosmo) + gparams, fn)
+                    _kernel_params(p) + _cosmo_params(cosmo) + gparams
+                    + p.mod.force_params(p), fn, sph_mode(p))
     return PairPass(body, fields, range_scale=float(p.kernel.gamma),
                     sym_range=True, reach_floor=float(r_cut))
 
@@ -301,6 +341,7 @@ def timebin_pass(s: Dict, p: SPHENIXParams) -> PairPass:
         neg_tb = torch.where(nf("tb") > 0, -nf("tb"), -big_bin)
         return ok, [], [neg_tb]
 
+    # the kernel enters only through gamma2: one body for every kernel
     body = PairBody("timebin", TIMEBIN_FIELDS, 0, 1, (gamma2,), fn)
     return PairPass(body, fields, range_scale=float(p.kernel.gamma),
                     sym_range=True)
@@ -310,6 +351,10 @@ def chem_smooth_pass(s: Dict, p: SPHENIXParams) -> PairPass:
     """Chemistry smoothing's neighbour sums (chemistry_iact.h): m_j
     W(r, h_i) times Z_j and each element fraction, over the density
     body's pairs (the reference's ``u2 < gamma^2`` test)."""
+    if p.kernel != CUBIC_SPLINE:
+        raise NotImplementedError(
+            f"the chemistry smoothing body runs the cubic spline only, not "
+            f"{kernel_name(p.kernel)!r}")
     fields = _common_fields(s)
     fields["h"] = _san(s, "h")
     fields["hinv"] = 1.0 / fields["h"]
@@ -340,11 +385,14 @@ def density_loop(grid: CellGrid, s: Dict, p: SPHENIXParams,
                  engine: str = "flat") -> Dict[str, torch.Tensor]:
     sums, _ = _apply(engine, grid, density_pass(s, p), active_i)
     m = s["mask"]
-    return {
+    out = {
         "rho": sums[0] * m, "rho_dh": sums[1] * m, "wcount": sums[2] * m,
         "wcount_dh": sums[3] * m, "div_v": sums[4] * m,
         "rot_v": torch.stack([sums[5] * m, sums[6] * m, sums[7] * m], -1),
     }
+    for i, k in enumerate(p.mod.DENSITY_EXTRA_KEYS):
+        out[k] = sums[8 + i] * m
+    return out
 
 
 def gradient_loop(grid: CellGrid, s: Dict, p: SPHENIXParams,

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..grid.cellgrid import CellGrid
+from ..models.sph import SCHEME_MODULES
 from .cuda_build import KernelLibrary
 
 F32 = torch.float32
@@ -78,10 +79,16 @@ def reset_launches() -> None:
     LAUNCHES.clear()
 
 
+def body_key(body: "PairBody") -> str:
+    """A body's name with its mode: ``force`` (SPHENIX, cubic spline) or
+    ``force[minimal/wendland-C2]``."""
+    return body.name + (f"[{body.mode}]" if body.mode else "")
+
+
 def launch_name(body: "PairBody", launch: "PairLaunch") -> str:
-    """The ``LAUNCHES`` key of a launch: the body's name, with
-    ``_cross`` for a cross-species launch."""
-    return body.name + ("_cross" if launch.cross else "")
+    """The ``LAUNCHES`` key of a launch: ``body_key``, with ``_cross`` for
+    a cross-species launch."""
+    return body_key(body) + ("_cross" if launch.cross else "")
 
 
 @dataclass(frozen=True)
@@ -92,7 +99,11 @@ class PairBody:
     body's field indices in ``csrc/pair_bodies.cuh``.  ``params`` are the
     body's float constants in the order of its ``P_*`` indices there.
     ``fn(sf, nf, dx, r2)`` returns (ok_extra, sums, maxes) on broadcast
-    tensors, the protocol of the reference's pair callbacks.
+    tensors, the protocol of the reference's pair callbacks.  ``mode``
+    names the SPH scheme and smoothing kernel of an SPH body
+    (``"<SPH:scheme>/<SPH:kernel>"``, whose entries are in that mode's
+    library, ``mode_library``); "" for the default library (SPHENIX with
+    the cubic spline, and every non-SPH body).
     """
 
     name: str
@@ -101,6 +112,7 @@ class PairBody:
     n_max: int
     params: Tuple[float, ...]
     fn: Callable
+    mode: str = ""
 
 
 @dataclass
@@ -626,37 +638,88 @@ BODY_NAMES = ("density", "gradient", "force", "force_gravity", "p2p_gravity",
 # probes/probe_kernel.py)
 PROBE_BODY_NAMES = ("probe_a00", "probe_a", "probe_b", "probe_c", "probe_d",
                     "probe_e")
+SOURCES = ("pair_flat.cu", "pair_bodies.cuh", "probe_bodies.cuh",
+           "walk.cuh")
+# SPH:scheme and SPH:kernel names -> their structs in csrc/pair_bodies.cuh
+SCHEME_STRUCTS = {n: m.CUDA_STRUCT for n, m in SCHEME_MODULES.items()}
+KERNEL_STRUCTS = {"cubic-spline": "CubicSpline",
+                  "quartic-spline": "QuarticSpline",
+                  "quintic-spline": "QuinticSpline",
+                  "wendland-C2": "WendlandC2", "wendland-C4": "WendlandC4",
+                  "wendland-C6": "WendlandC6"}
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    for name in BODY_NAMES + PROBE_BODY_NAMES:
-        fn = getattr(lib, f"pair_flat_{name}")
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.c_float] * 4
-                       + [ctypes.POINTER(ctypes.c_float), ctypes.c_int,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        attr = getattr(lib, f"pair_flat_{name}_attributes")
-        attr.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        attr.restype = ctypes.c_int
+def _binder(names):
+    def bind(lib: ctypes.CDLL) -> None:
+        for name in names:
+            fn = getattr(lib, f"pair_flat_{name}")
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                           + [ctypes.c_float] * 4
+                           + [ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                              ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            attr = getattr(lib, f"pair_flat_{name}_attributes")
+            attr.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            attr.restype = ctypes.c_int
+    return bind
 
 
-LIBRARY = KernelLibrary("pair_flat", ("pair_flat.cu", "pair_bodies.cuh",
-                                     "probe_bodies.cuh", "walk.cuh"), _bind)
+LIBRARY = KernelLibrary("pair_flat", SOURCES,
+                        _binder(BODY_NAMES + PROBE_BODY_NAMES))
+_MODE_LIBRARIES: Dict[str, KernelLibrary] = {}
+
+
+def mode_body_names(mode: str) -> Tuple[str, ...]:
+    """The entries of a mode's library: its scheme's SPH bodies."""
+    mod = SCHEME_MODULES[mode.split("/")[0]]
+    grad = ("gradient",) if mod.HAS_GRADIENT_LOOP else ()
+    return ("density",) + grad + ("force", "force_gravity")
+
+
+def mode_library(mode: str) -> KernelLibrary:
+    """The library of an SPH mode ``"<scheme>/<kernel>"`` (``""``: the
+    default ``LIBRARY``): csrc/pair_flat.cu built with that scheme's and
+    kernel's structs, holding ``mode_body_names(mode)``."""
+    if not mode:
+        return LIBRARY
+    lib = _MODE_LIBRARIES.get(mode)
+    if lib is None:
+        scheme, kernel = mode.split("/")
+        if scheme not in SCHEME_STRUCTS or kernel not in KERNEL_STRUCTS:
+            raise ValueError(f"no flat kernel mode {mode!r} (schemes "
+                             f"{list(SCHEME_STRUCTS)}, kernels "
+                             f"{list(KERNEL_STRUCTS)})")
+        grad = int(SCHEME_MODULES[scheme].HAS_GRADIENT_LOOP)
+        lib = KernelLibrary(
+            f"pair_flat_{scheme}_{kernel}", SOURCES,
+            _binder(mode_body_names(mode)),
+            flags=(f"-DSPH_SCHEME={SCHEME_STRUCTS[scheme]}",
+                   f"-DSPH_KERNEL={KERNEL_STRUCTS[kernel]}",
+                   f"-DSPH_GRADIENT={grad}"))
+        _MODE_LIBRARIES[mode] = lib
+    return lib
+
+
+def all_modes() -> Tuple[str, ...]:
+    """Every SPH mode but the default: each scheme under each kernel."""
+    return tuple(f"{s}/{k}" for s in SCHEME_STRUCTS for k in KERNEL_STRUCTS
+                 if (s, k) != ("sphenix", "cubic-spline"))
+
 
 ATTRIBUTES = ("registers", "local_bytes", "static_smem", "dynamic_smem",
               "blocks_per_sm", "fields", "window", "chunk_rows", "stages",
               "warps", "n_stats")
 
 
-def kernel_attributes(name: str) -> Dict[str, int]:
-    """The compiled kernel of body ``name``: registers per thread, local
-    memory bytes per thread (spills), static and dynamic shared memory per
-    block, resident blocks per SM, and its walk's constants (needs the
-    card).  Raises if its statistics are not laid out as ``WALK_STATS``
-    per warp."""
+def kernel_attributes(name: str, mode: str = "") -> Dict[str, int]:
+    """The compiled kernel of body ``name`` (in ``mode``'s library):
+    registers per thread, local memory bytes per thread (spills), static
+    and dynamic shared memory per block, resident blocks per SM, and its
+    walk's constants (needs the card).  Raises if its statistics are not
+    laid out as ``WALK_STATS`` per warp."""
     res = (ctypes.c_int * len(ATTRIBUTES))()
-    err = getattr(LIBRARY.load(), f"pair_flat_{name}_attributes")(res)
+    err = getattr(mode_library(mode).load(),
+                  f"pair_flat_{name}_attributes")(res)
     if err != 0:
         raise RuntimeError(f"pair_flat_{name}_attributes: CUDA error {err}")
     a = dict(zip(ATTRIBUTES, res))
@@ -699,7 +762,7 @@ def pair_apply_kernel(launch: PairLaunch, body: PairBody,
     if L.Xa.data_ptr() % 16:
         raise ValueError("pair_apply_kernel: Xa must be 16-byte aligned "
                          "(bulk copies)")
-    fn = getattr(LIBRARY.load(), f"pair_flat_{body.name}")
+    fn = getattr(mode_library(body.mode).load(), f"pair_flat_{body.name}")
     out = torch.zeros((body.n_sum + body.n_max, Ncol * W), dtype=F32,
                       device=dev)
     walk = None
@@ -714,7 +777,7 @@ def pair_apply_kernel(launch: PairLaunch, body: PairBody,
              L.Wj, GRAN, F, L.ex, L.ey, L.boxz, 1.0 / L.boxz, prm,
              len(body.params), stream)
     if err != 0:
-        raise RuntimeError(f"pair_flat_{body.name}: CUDA error {err}")
+        raise RuntimeError(f"pair_flat_{body_key(body)}: CUDA error {err}")
     key = launch_name(body, L)
     LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
     if walk is not None:
