@@ -8,8 +8,9 @@ Phases (any failure ends the script with a non-zero exit and no result):
 1. Card: require a CUDA device; print its name and power limit
    (nvidia-smi) and the torch/CUDA versions.
 2. Build: compile the flat pair kernel (csrc/pair_flat.cu, with the cost
-   probe's bodies, and once more for each of its 29 SPH modes: a scheme
-   under a smoothing kernel), the packed 27-cell pair kernel
+   probe's bodies, and once more for each of its SPH modes: a scheme
+   struct under a smoothing kernel, 59 libraries for the 65 modes, as
+   Planetary's modes run Minimal's), the packed 27-cell pair kernel
    (csrc/pair_packed.cu),
    the ring-buffer 27-cell pair kernel (csrc/pair_ring.cu; both on the
    walk of csrc/walk27.cuh) and the FP32 probe (csrc/vpu_peak.cu) with
@@ -144,18 +145,33 @@ Phases (any failure ends the script with a non-zero exit and no result):
    brute force (1e-4).
 13. K1's SPH modes on the main path: bench.py's geometry (1,024,000
    particles, P3M, split mesh) under each of SCHEME_RUNS (Minimal,
-   Gadget2 and Pressure-Energy with the cubic spline, Anarchy-PU with
+   Gadget2, Pressure-Energy, Pressure-Entropy, Pressure-Energy-Monaghan,
+   Phantom, Gasoline and None with the cubic spline, Anarchy-PU with
    Wendland C2), init_particles() + run_fixed_dt(SCHEME_STEPS) with the
    launch counters reset just before: ms per step, finite state, total
    mass unchanged, every body of the mode launched, the float64
    brute-force density of 1,024 particles (<= 1e-4; the kernel's own
    polynomial) and, for the pressure-energy schemes, the smoothed
-   pressure of a fresh density pass (<= 1e-4); each body (density,
-   gradient where the scheme has one, force, force + gravity) against
-   its plain version (phase 3's tolerances, hold_walk).
+   pressure of a fresh density pass (Pressure-Entropy: its weighted
+   density rho_bar; <= 1e-4); for None, a_hydro and u_dt exactly 0 and
+   u unchanged per particle (gravity alone moves the particles); each
+   body (density, gradient where the scheme has one, force, force +
+   gravity) against its plain version (phase 3's tolerances,
+   hold_walk).
+   Then the Planetary phase: the reference's mixed-material box
+   (tests/test_planetary.py:102) at the main path's size
+   (uniform_box_ic(n=80, jitter=0.05, seed=11): 1,024,000 particles in
+   1 m^3, masses x 998, ideal gas and Tillotson water alternating, u =
+   1e3, dt_max = 1e-7, no gravity), init_particles() + PLANETARY_STEPS
+   steps with the launch counters reset just before, then one step with
+   its rebucket forced and a re-grid: finite state, P >= 0, energy drift
+   < 2e-4 (the reference test's rule), mass unchanged, mat_id int32 and
+   its multiset unchanged after each rebucket, Minimal's bodies (its
+   libraries) launched and held against their plain versions on
+   Planetary's fields.
 14. The Sod shock (the port's examples/sodshock.py, flat backend, n =
-   SOD_N = 64: 147,456 particles, to t = 0.2) for each scheme with the
-   cubic spline and Anarchy-PU with Wendland C2: steps, ms per step,
+   SOD_N = 64: 147,456 particles, to t = 0.2) for each hydro scheme with
+   the cubic spline and Anarchy-PU with Wendland C2: steps, ms per step,
    L1(rho)/mean, L1(vx), energy drift; L1(rho) no larger than the
    reference's own at n = 32 (SOD_REFERENCE_L1); finite state, mass
    unchanged, every body launched, each held against its plain version
@@ -163,10 +179,11 @@ Phases (any failure ends the script with a non-zero exit and no result):
    sum_j |term_j|, n its pairs: the f32 sums' rounding bound, ``compare``;
    maxes as phase 3: the tube's transverse sums cancel to ~0), with
    force + gravity where no earlier phase holds that mode's.  Then each
-   scheme's cubic-spline Sod at SOD_HOLD_N = 48 to t = 0.2, and each
-   scheme under each of the five other kernels on its final state: the
-   particles on a column grid for the kernel, init_particles() (every
-   body launched), each body and force + gravity held the same way.
+   scheme's cubic-spline Sod at SOD_HOLD_N = 32 to t = 0.2, and each
+   scheme under each of the five other kernels on its final state (None
+   on SPHENIX's): the particles on a column grid for the kernel,
+   init_particles() (every body launched), each body and force + gravity
+   held the same way.
 15. Prints {"kernels": [...]} (each kernel's launches on its path, errors,
    times, and its bound: the larger of the bytes it must move -- the
    particles' fields it reads, the output slots it writes and the index
@@ -219,21 +236,33 @@ PEAK_FP32_PER_S = 67e12
 # the SPH modes phase 13 drives on the main path (SPH:scheme, SPH:kernel)
 SCHEME_RUNS = (("minimal", "cubic-spline"), ("gadget2", "cubic-spline"),
                ("pressure-energy", "cubic-spline"),
-               ("anarchy-pu", "wendland-C2"))
+               ("anarchy-pu", "wendland-C2"),
+               ("pressure-entropy", "cubic-spline"),
+               ("pressure-energy-monaghan", "cubic-spline"),
+               ("phantom", "cubic-spline"), ("gasoline", "cubic-spline"),
+               ("none", "cubic-spline"))
 SCHEME_STEPS = 8
 # phase 14: the Sod shock at SOD_N (the reference example's default) to
-# SOD_T_END for each scheme with the cubic spline and Anarchy-PU with
-# Wendland C2; every other mode (scheme and kernel) on the developed state
-# of its scheme's cubic-spline Sod at SOD_HOLD_N.  At SOD_N those holds
-# took 677 s of the card (the plain versions are dense over a column's
-# rows: their cost grows as n^4), which with the rest of the script comes
-# near its 1,200 s limit; at 48 they take ~0.3 of that.
+# SOD_T_END for each hydro scheme with the cubic spline and Anarchy-PU
+# with Wendland C2; every other mode (scheme and kernel) on the developed
+# state of its scheme's cubic-spline Sod at SOD_HOLD_N (None's on
+# SPHENIX's: it has no hydrodynamics to develop one).  At SOD_N those
+# holds took 677 s of the card (the plain versions are dense over a
+# column's rows: their cost grows as n^4), at 48 355 s for 24 modes; at
+# 32, ~0.2 of that, they leave room for the 25 modes of the last five
+# schemes inside the script's 1,200 s limit.
 SOD_N = 64              # 147,456 particles
-SOD_HOLD_N = 48         # 62,208 particles
+SOD_HOLD_N = 32         # 18,432 particles
 SOD_T_END = 0.2
 SOD_RUNS = (("sphenix", "cubic-spline"), ("minimal", "cubic-spline"),
             ("gadget2", "cubic-spline"), ("pressure-energy", "cubic-spline"),
-            ("anarchy-pu", "cubic-spline"), ("anarchy-pu", "wendland-C2"))
+            ("anarchy-pu", "cubic-spline"), ("anarchy-pu", "wendland-C2"),
+            ("pressure-entropy", "cubic-spline"),
+            ("pressure-energy-monaghan", "cubic-spline"),
+            ("phantom", "cubic-spline"), ("gasoline", "cubic-spline"))
+# the developed state each scheme's other modes are held on, when not its
+# own Sod's
+HOLD_STATE_OF = {"none": "sphenix"}
 # The reference's own L1(rho)/mean at n = 32, t = 0.2, per (scheme,
 # kernel), measured once by tools/sod_reference_l1.py (the JAX package's
 # engine, flat backend on the column grid, on a CPU); phase 14's runs at
@@ -244,7 +273,15 @@ SOD_REFERENCE_L1 = {
     ("gadget2", "cubic-spline"): 0.02202661753953336,
     ("pressure-energy", "cubic-spline"): 0.018364279939943665,
     ("anarchy-pu", "cubic-spline"): 0.019490807267347223,
-    ("anarchy-pu", "wendland-C2"): 0.02535542262843186}
+    ("anarchy-pu", "wendland-C2"): 0.02535542262843186,
+    ("pressure-entropy", "cubic-spline"): 0.020823598528212767,
+    ("pressure-energy-monaghan", "cubic-spline"): 0.018554056471902197,
+    ("phantom", "cubic-spline"): 0.028636457208474575,
+    ("gasoline", "cubic-spline"): 0.026240660470888064}
+# the Planetary phase: the reference's mixed-material box
+# (tests/test_planetary.py:102) at the main path's size, SI units
+PLANETARY_N = 80        # 1,024,000 particles in 1 m^3
+PLANETARY_STEPS = 8
 # FP32 operations per accepted pair of each body, counted from
 # csrc/pair_bodies.cuh: each add, multiply, compare, select, min/max,
 # divide, sqrt, rsqrt and exp counts one; the separation and r2, the
@@ -259,36 +296,59 @@ OPS_PER_PAIR = {"density": 78, "gradient": 63, "force": 167,
                 # sum, plus each body's own
                 "probe_a00": 18, "probe_a": 18, "probe_b": 26,
                 "probe_c": 131, "probe_d": 37, "probe_e": 39}
-# K1's SPH modes, from the counts above (SPHENIX, cubic spline): a kernel's
-# deval in place of the cubic spline's 17 (x = u gamma_inv and the two
-# normalisations, 3; a truncated-power term of degree d, d + 3, and 2 to
-# add each further term; a Wendland branch of N coefficients, 4 (N - 1)
-# for Horner and 5 for the clamps), once in density and gradient, twice
-# in the force bodies; a scheme's force terms in place of SPHENIX's 62
-# (beyond the kinematics both share); the pressure-energy density's u_j
-# sums, 6 more
+# K1's SPH modes, counted from csrc/pair_bodies.cuh as above.  A mode's
+# body is a frame that every scheme shares (MODE_FRAME_OPS: the
+# separation and r2, the pair mask, the range test; density's eight sums
+# and gradient's two maxes; force's neighbour bin and the sums of its
+# outputs; force + gravity's gravity) and its scheme struct's hooks
+# (MODE_HOOK_OPS).  A hook's entry is its operations beside the smoothing
+# kernel and its kernel evaluations, each DEVAL_OPS of the mode's kernel
+# (x = u gamma_inv and the two normalisations, 3; a truncated-power term
+# of degree d, d + 3, and 2 to add each further term; a Wendland branch
+# of N coefficients, 4 (N - 1) for Horner and 5 for the clamps).
+# SPHENIX with the cubic spline gives OPS_PER_PAIR's counts.
 DEVAL_OPS = {"cubic-spline": 17, "quartic-spline": 28,
              "quintic-spline": 31, "wendland-C2": 28, "wendland-C4": 40,
              "wendland-C6": 52}
-FORCE_SCHEME_OPS = {"sphenix": 62, "minimal": 31, "gadget2": 20,
-                    "pressure-energy": 44, "anarchy-pu": 59}
+MODE_FRAME_OPS = {"density": 61, "gradient": 39, "force": 27,
+                  "force_gravity": 103}
+# (scheme struct, hook): "density", the density's kernel evaluation and
+# the scheme's extra sums (each product, the sum into the output; a
+# product that several outputs share counted once; Pressure-Entropy's
+# A_j^{1/gamma}: a max and a pow); "gradient", its sums (SPHENIX's
+# laplace_u; Phantom's 0, with no kernel evaluation; Gasoline's shock
+# limiter and correction weight); "force", for force and force + gravity
+# alike, pair_kinematics (44 beside its two kernel evaluations) and the
+# scheme's force terms (None has neither)
+MODE_HOOK_OPS = {
+    ("Sphenix", "density"): (0, 1), ("Sphenix", "gradient"): (7, 1),
+    ("Sphenix", "force"): (106, 2),
+    ("Minimal", "density"): (0, 1), ("Minimal", "force"): (75, 2),
+    ("Gadget2", "density"): (0, 1), ("Gadget2", "force"): (64, 2),
+    ("PressureEnergy", "density"): (6, 1),
+    ("PressureEnergy", "force"): (88, 2),
+    ("AnarchyPU", "density"): (6, 1), ("AnarchyPU", "gradient"): (7, 1),
+    ("AnarchyPU", "force"): (103, 2),
+    ("PressureEntropy", "density"): (8, 1),
+    ("PressureEntropy", "force"): (86, 2),
+    ("PressureEnergyMM", "density"): (6, 1),
+    ("PressureEnergyMM", "force"): (92, 2),
+    ("Phantom", "density"): (0, 1), ("Phantom", "gradient"): (1, 0),
+    ("Phantom", "force"): (90, 2),
+    ("Gasoline", "density"): (30, 1), ("Gasoline", "gradient"): (13, 1),
+    ("Gasoline", "force"): (85, 2),
+    ("NoneScheme", "density"): (0, 1), ("NoneScheme", "force"): (0, 0)}
 
 
 def ops_per_pair(body):
     """FP32 operations per accepted pair of ``body`` in its mode."""
-    from swift_subtask_dev_tpu_torch.models.sph import SCHEME_MODULES
     if not body.mode:
         return OPS_PER_PAIR[body.name]
+    from swift_subtask_dev_tpu_torch.ops.pair_flat import SCHEME_STRUCTS
     scheme, kernel = body.mode.split("/")
-    dk = DEVAL_OPS[kernel] - DEVAL_OPS["cubic-spline"]
-    base = OPS_PER_PAIR[body.name]
-    if body.name == "density":
-        return base + dk + (6 if SCHEME_MODULES[scheme].DENSITY_NEEDS_U
-                            else 0)
-    if body.name == "gradient":
-        return base + dk
-    return base + 2 * dk + FORCE_SCHEME_OPS[scheme] \
-        - FORCE_SCHEME_OPS["sphenix"]
+    hook = "force" if body.name == "force_gravity" else body.name
+    ops, devals = MODE_HOOK_OPS[SCHEME_STRUCTS[scheme], hook]
+    return MODE_FRAME_OPS[body.name] + ops + devals * DEVAL_OPS[kernel]
 
 
 class PhaseFailed(RuntimeError):
@@ -369,8 +429,9 @@ def phase_build(card):
     from swift_subtask_dev_tpu_torch.ops import pair_packed, pair_ring
     from swift_subtask_dev_tpu_torch.probes import vpu_peak
     modes = pair_flat.all_modes()
+    mode_libs = pair_flat.mode_libraries()
     libs = [pair_flat.LIBRARY, pair_packed.LIBRARY, pair_ring.LIBRARY,
-            vpu_peak.LIBRARY] + [pair_flat.mode_library(m) for m in modes]
+            vpu_peak.LIBRARY] + mode_libs
     t0 = time.perf_counter()
     paths = cuda_build.build_all(libs, force=True)
     for lib, path in zip(libs, paths):
@@ -381,12 +442,20 @@ def phase_build(card):
             for line in lib.build_log.splitlines():
                 if "registers" in line or "spill" in line:
                     print("  ptxas:", line.strip())
-    print(f"build: {len(libs)} libraries (K1's {len(modes)} SPH mode "
-          f"libraries among them) in {time.perf_counter() - t0:.2f} s, "
-          f"one nvcc each, all started together")
+    print(f"build: {len(libs)} libraries (K1's {len(mode_libs)} SPH mode "
+          f"libraries among them, for its {len(modes)} modes) in "
+          f"{time.perf_counter() - t0:.2f} s, one nvcc each, all started "
+          f"together")
     print(f"flat kernel entries [{card}]:")
+    printed = set()
     for mode in ("",) + modes:
-        spills = ptxas_spills(pair_flat.mode_library(mode).build_log)
+        lib = pair_flat.mode_library(mode)
+        if id(lib) in printed:      # a mode sharing another's library
+            print(f"  mode {mode}: the library of "
+                  f"{pair_flat.SCHEME_STRUCTS[mode.split('/')[0]]}")
+            continue
+        printed.add(id(lib))
+        spills = ptxas_spills(lib.build_log)
         names = (pair_flat.BODY_NAMES + pair_flat.PROBE_BODY_NAMES
                  if not mode else pair_flat.mode_body_names(mode))
         for name in names:
@@ -405,14 +474,14 @@ def bench_engine(n1, mesh_N, device, scheme="sphenix",
                  kernel="cubic-spline"):
     """bench.py:141-183 (uniform IC, SPH + P3M, flat columns), SPHENIX
     with the cubic spline as bench.py runs it, or another SPH:scheme and
-    SPH:kernel in its place (Gadget2's u slot holds the entropy, from the
-    IC's density 1)."""
+    SPH:kernel in its place (the entropy schemes' u slot holds the
+    entropy, from the IC's density 1)."""
     from swift_subtask_dev_tpu_torch.engine import Engine, EngineConfig
     from swift_subtask_dev_tpu_torch.grid import CellGrid
     from swift_subtask_dev_tpu_torch.ics import uniform_box_ic
     from swift_subtask_dev_tpu_torch.models.gravity import (GravityParams,
                                                             GravitySolver)
-    from swift_subtask_dev_tpu_torch.models.sph import SCHEMES, gadget2
+    from swift_subtask_dev_tpu_torch.models.sph import SCHEMES, u_is_entropy
     from swift_subtask_dev_tpu_torch.models.sph.kernels import KERNELS
     import numpy as np
 
@@ -437,8 +506,8 @@ def bench_engine(n1, mesh_N, device, scheme="sphenix",
                  mesh_dt_scale=solver.pm.r_s)
     eng.solver_builder = lambda g: GravitySolver(gp, g, device=device)
     u = ic["u"]
-    if scheme == "gadget2":
-        u = gadget2.entropy_from_internal_energy(
+    if u_is_entropy(P):
+        u = P.mod.entropy_from_internal_energy(
             P, np.ones_like(u), u).numpy()
     eng.load_particles(ic["pos"], ic["m"], ic["v"], u, ic["h"])
     return eng, P, solver, len(ic["pos"])
@@ -2073,6 +2142,15 @@ def hold_modes(eng, P, card, launches, cosmo, fuse_spec=None, entries=None,
     return out
 
 
+def u_by_pid(s, n):
+    """The live particles' u_full, indexed by particle id."""
+    import torch
+    live = s["mask"] > 0
+    out = torch.zeros(n, dtype=s["u_full"].dtype, device=s["u_full"].device)
+    out[s["pid"][live].long()] = s["u_full"][live]
+    return out
+
+
 def phase_schemes_main(device, card, n1=80, mesh_N=192):
     """Phase 13: each of SCHEME_RUNS on the main path's geometry
     (bench.py's 1,024,000 particles, P3M, split mesh): init_particles() +
@@ -2090,6 +2168,8 @@ def phase_schemes_main(device, card, n1=80, mesh_N=192):
         print(f"phase 13: {scheme} with the {kernel}, {n} particles, grid "
               f"cdim={list(eng.grid.cdim)} W={eng.grid.K}, mesh_N={mesh_N}")
         m0 = total_mass(eng.state)
+        if scheme == "none":
+            u0_pid = u_by_pid(eng.state, n)
         torch.cuda.synchronize()
         pair_flat.reset_launches()
         t0 = time.perf_counter()
@@ -2123,11 +2203,14 @@ def phase_schemes_main(device, card, n1=80, mesh_N=192):
         check(err <= 1e-4, f"{scheme}: density disagrees with the float64 "
               "brute force")
         cosmo = CosmoFactors.no_cosmo()
-        if P.mod.DENSITY_NEEDS_U:
+        smoothed = [k for k in ("pressure_bar", "rho_bar")
+                    if k in P.mod.DENSITY_EXTRA_KEYS]
+        for key in smoothed:
             # a fresh density pass (the state's u at the pass's time) and
-            # end_density: P̄ = (gamma - 1) sum_j m_j u_j W(r_ij, h_i)
+            # end_density: P̄ = (gamma - 1) sum_j m_j u_j W(r_ij, h_i), or
+            # rho_bar = sum_j m_j S_j W(r_ij, h_i) / S_i, S = A^(1/gamma)
             d = hydro_flat.density_loop(eng.grid, s, P)
-            pb = P.mod.end_density(P, {**s, **d}, cosmo)["pressure_bar"]
+            got = P.mod.end_density(P, {**s, **d}, cosmo)[key]
             pos, live = live_f64(eng.grid, s)
             box = torch.tensor(eng.grid.box, dtype=torch.float64,
                                device=pos.device)
@@ -2135,19 +2218,152 @@ def phase_schemes_main(device, card, n1=80, mesh_N=192):
             def flat(x):
                 return x.reshape(-1)[live].double()
             idx = sample(pos.shape[0], 1024, 4, pos.device)
-            ref = (P.eos.gamma - 1.0) * brute_kernel_sum(
-                pos, box, flat(s["h"]), flat(s["m"]) * flat(s["u"]), idx,
-                P.kernel)
-            perr = ((flat(pb)[idx] - ref).abs() / ref.abs()).max().item()
-            print(f"  smoothed pressure against the float64 brute force on "
-                  f"1024 particles: max relative error {perr:.3e}")
-            check(perr <= 1e-4, f"{scheme}: pressure_bar disagrees with the "
+            if key == "pressure_bar":
+                ref = (P.eos.gamma - 1.0) * brute_kernel_sum(
+                    pos, box, flat(s["h"]), flat(s["m"]) * flat(s["u"]),
+                    idx, P.kernel)
+            else:
+                S = flat(s["u"]).clamp_min(1e-30) ** (1.0 / P.eos.gamma)
+                ref = brute_kernel_sum(pos, box, flat(s["h"]),
+                                       flat(s["m"]) * S, idx,
+                                       P.kernel) / S[idx]
+            perr = ((flat(got)[idx] - ref).abs() / ref.abs()).max().item()
+            print(f"  {key} against the float64 brute force on 1024 "
+                  f"particles: max relative error {perr:.3e}")
+            check(perr <= 1e-4, f"{scheme}: {key} disagrees with the "
                   "float64 brute force")
+        if scheme == "none":
+            # no hydro: a_hydro and u_dt exactly 0, u never changes, so
+            # gravity alone moves the particles
+            check(bool((s["a_hydro"] == 0).all())
+                  and bool((s["u_dt"] == 0).all()),
+                  "none: a_hydro or u_dt not exactly 0")
+            check(bool(torch.equal(u_by_pid(s, n), u0_pid)),
+                  "none: the internal energy changed")
+            a_g = (s["a_grav"] + s["a_grav_mesh"])[s["mask"] > 0]
+            print(f"  none: a_hydro and u_dt exactly 0, u unchanged; "
+                  f"|a_grav| max {a_g.norm(dim=-1).max().item():.4e}")
         hold_modes(eng, P, card, launches, cosmo,
                    solver.gas_short_range_fn().fuse_spec, kernels)
         print(f"  [{scheme}, {kernel}] main path {step_ms:.2f} ms/step")
         del eng, solver
         torch.cuda.empty_cache()
+    return kernels
+
+
+def planetary_engine(n_side, device):
+    """The reference's mixed-material box (tests/test_planetary.py:102)
+    on the flat backend: uniform_box_ic(n_side, jitter 0.05, seed 11) in 1
+    m^3, masses x 998 (SI: water-like densities), every other particle
+    ideal gas (ID_IDG_DEF) and Tillotson water (ID_TIL_WATER), u = 1e3
+    J/kg, dt_max = 1e-7 s, no gravity.  Returns (engine, params, mat_id
+    as loaded)."""
+    import numpy as np
+    from swift_subtask_dev_tpu_torch.engine import Engine, EngineConfig
+    from swift_subtask_dev_tpu_torch.grid import CellGrid
+    from swift_subtask_dev_tpu_torch.ics import uniform_box_ic
+    from swift_subtask_dev_tpu_torch.models.sph import SCHEMES
+    from swift_subtask_dev_tpu_torch.models.sph import planetary_eos as pe
+    ic = uniform_box_ic(n=n_side, jitter=0.05, seed=11)
+    n = len(ic["pos"])
+    eos = pe.PlanetaryEOS(materials=(pe.ID_IDG_DEF, pe.ID_TIL_WATER))
+    P = SCHEMES["planetary"](h_max=float(ic["h"].max() * 3), eos=eos)
+    mat = np.where(np.arange(n) % 2 == 0, pe.ID_IDG_DEF,
+                   pe.ID_TIL_WATER).astype(np.int32)
+    grid = CellGrid.build_columns(
+        ic["box"], interaction_range=float(ic["h"].max() * P.kernel.gamma
+                                           * 1.25), pos=ic["pos"])
+    eng = Engine(grid, P, EngineConfig(dt_max=1e-7), 0.0, 1.0,
+                 device=device)
+    eng.load_particles(ic["pos"], np.asarray(ic["m"]) * 998.0, ic["v"],
+                       np.full(n, 1.0e3, np.float32), ic["h"],
+                       extra_fields={"mat_id": mat})
+    return eng, P, mat
+
+
+def energy_f64(s):
+    """Kinetic + internal energy of the live particles, float64 sums."""
+    live = s["mask"] > 0
+    m = s["m"][live].double()
+    v = s["v_full"][live].double()
+    return float((0.5 * m * (v * v).sum(-1)
+                  + m * s["u_full"][live].double()).sum())
+
+
+def phase_planetary(device, card, n_side=PLANETARY_N):
+    """The Planetary phase: the mixed-material box (planetary_engine) at
+    the main path's size, init_particles() + PLANETARY_STEPS steps with
+    the launch counters reset just before, then a rebucket forced within
+    one more step and a re-grid.  Checks: finite state, P >= 0, energy
+    drift over the steps within 2e-4 (the reference test's rule), the
+    mat_id multiset unchanged and int32 after each rebucket, Minimal's
+    bodies (Planetary's) launched and held against their plain versions
+    on Planetary's fields."""
+    import torch
+    from swift_subtask_dev_tpu_torch.models.sph.sphenix import CosmoFactors
+    from swift_subtask_dev_tpu_torch.ops import pair_flat
+    eng, P, mat = planetary_engine(n_side, device)
+    n = len(mat)
+    want = torch.bincount(torch.as_tensor(mat, device=device).long())
+    print(f"phase 13b (Planetary): {n} particles, ideal gas and Tillotson "
+          f"water, grid cdim={list(eng.grid.cdim)} W={eng.grid.K}")
+
+    def mat_ok(what):
+        s = eng.state
+        live = s["mask"] > 0
+        check(s["mat_id"].dtype == torch.int32,
+              f"planetary: mat_id is {s['mat_id'].dtype} {what}")
+        got = torch.bincount(s["mat_id"][live].long(),
+                             minlength=want.numel())
+        check(bool(torch.equal(got, want)),
+              f"planetary: the mat_id multiset changed {what}")
+
+    mat_ok("on loading")
+    m0 = total_mass(eng.state)
+    torch.cuda.synchronize()
+    pair_flat.reset_launches()
+    t0 = time.perf_counter()
+    diag = eng.init_particles()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    e0 = energy_f64(eng.state)
+    for _ in range(PLANETARY_STEPS):
+        eng.step()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(pair_flat.LAUNCHES)
+    e1 = energy_f64(eng.state)
+    drift = abs(e1 - e0) / abs(e0)
+    step_ms = 1e3 * (t2 - t1) / PLANETARY_STEPS
+    s = eng.state
+    live = s["mask"] > 0
+    P_live = s["pressure"][live]
+    print(f"  init_particles {t1 - t0:.3f} s (ghost iterations "
+          f"{diag['n_ghost_iter']}), {PLANETARY_STEPS} steps "
+          f"{t2 - t1:.3f} s: {step_ms:.2f} ms/step [{card}]; energy drift "
+          f"{drift:.3e}; P in [{P_live.min().item():.4e}, "
+          f"{P_live.max().item():.4e}] Pa; re-grids {eng.n_regrids}")
+    print(f"  kernel launches: {launches}")
+    bad = finite_state(s)
+    check(not bad, f"planetary: non-finite state fields: {bad}")
+    check(bool((P_live >= 0).all()), "planetary: negative pressure")
+    check(drift < 2e-4, f"planetary: energy drift {drift:.3e} >= 2e-4")
+    check(total_mass(s) == m0, "planetary: total mass changed")
+    names, tag = mode_bodies(P)
+    for name in names:
+        check(launches.get(name + tag, 0) > 0,
+              f"{name}{tag}: kernel never launched by the Planetary run")
+    mat_ok("after the steps")
+    eng.state["drift_accum"] = torch.full_like(eng.state["drift_accum"],
+                                               float("inf"))
+    eng.step()
+    mat_ok("after a forced rebucket")
+    eng.regrid()
+    mat_ok("after a re-grid")
+    kernels = hold_modes(eng, P, card, launches, CosmoFactors.no_cosmo())
+    print(f"  [planetary, cubic-spline] {step_ms:.2f} ms/step")
+    del eng
+    torch.cuda.empty_cache()
     return kernels
 
 
@@ -2192,27 +2408,30 @@ def sod_fuse_spec(grid):
 FUSED_ELSEWHERE = (("sphenix", "cubic-spline"),) + SCHEME_RUNS
 
 
-def hold_other_kernels(eng, device, card, cosmo, entries):
-    """Each mode of eng's scheme under the kernels of no Sod run, on the
-    run's developed state (SOD_HOLD_N, t = SOD_T_END): the state's particles
-    on a column grid for the kernel's reach, init_particles() (density,
-    ghost, gradient where the scheme has one, force; every body launched,
-    counters reset just before), then each body with force + gravity
-    (sod_fuse_spec) against its plain version per slot."""
+def hold_other_kernels(eng, device, card, cosmo, entries, scheme=None):
+    """Each mode of ``scheme`` (eng's own by default) under the kernels of
+    no Sod run or earlier hold, on eng's developed state (SOD_HOLD_N, t =
+    SOD_T_END): the state's particles on a column grid for the kernel's
+    reach, init_particles() (density, ghost, gradient where the scheme has
+    one, force; every body launched, counters reset just before), then
+    each body with force + gravity (sod_fuse_spec) against its plain
+    version per slot."""
     import dataclasses
     import torch
     from swift_subtask_dev_tpu_torch.engine import Engine
     from swift_subtask_dev_tpu_torch.grid.cellgrid import CellGrid
-    from swift_subtask_dev_tpu_torch.models.sph import scheme_name
+    from swift_subtask_dev_tpu_torch.models.sph import SCHEMES, scheme_name
     from swift_subtask_dev_tpu_torch.models.sph.kernels import KERNELS
     from swift_subtask_dev_tpu_torch.ops import pair_flat
-    scheme = scheme_name(eng.sph)
+    own = scheme is None or scheme == scheme_name(eng.sph)
+    scheme = scheme or scheme_name(eng.sph)
     pos, f = eng._extract_particles(eng.state)
     for kernel, K in KERNELS.items():
-        if (scheme, kernel) in SOD_RUNS:
+        if (scheme, kernel) in SOD_RUNS + FUSED_ELSEWHERE:
             continue
         t0 = time.perf_counter()
-        P = dataclasses.replace(eng.sph, kernel=K)
+        P = (dataclasses.replace(eng.sph, kernel=K) if own
+             else SCHEMES[scheme](kernel=K, h_max=eng.sph.h_max))
         grid = CellGrid.build_columns(
             eng.grid.box, interaction_range=float(f["h"].max() * K.gamma
                                                   * 1.4), pos=pos)
@@ -2284,12 +2503,16 @@ def phase_sod(device, card):
         del eng
         torch.cuda.empty_cache()
     for scheme in dict.fromkeys(sc for sc, _ in SOD_RUNS):
+        t0 = time.perf_counter()
         eng, res, _ = sod_run(scheme, "cubic-spline", SOD_HOLD_N, device,
                               card)
         print(f"phase 14: Sod {scheme} with the cubic-spline at n = "
               f"{SOD_HOLD_N}: {res['steps']} steps to t = {res['t']:.4f}, "
               f"L1(rho)/mean {res['l1_rho']:.5f} [{card}]")
-        hold_other_kernels(eng, device, card, cosmo, kernels)
+        for held in [scheme] + [sc for sc, st in HOLD_STATE_OF.items()
+                                if st == scheme]:
+            hold_other_kernels(eng, device, card, cosmo, kernels, held)
+        print(f"  {time.perf_counter() - t0:.1f} s for the scheme's holds")
         del eng
         torch.cuda.empty_cache()
     return kernels
@@ -2388,6 +2611,7 @@ def main():
         kernels += phase_eagle(device, card)
         phase_eagle_bh(device, card)
         kernels += phase_schemes_main(device, card)
+        kernels += phase_planetary(device, card)
         kernels += phase_sod(device, card)
         # one entry a kernel mode: the first path that held it (the main
         # path's SPHENIX bodies, phase 13's before the Sod runs')

@@ -9,13 +9,15 @@
 // each expression rounds as its torch counterpart does.
 //
 // The SPH bodies are templates over a smoothing kernel (a struct with
-// deval_x: models/sph/kernels.py, the six of its KERNELS) and, for
-// density and force, an SPH scheme (a struct of term functions: Sphenix,
-// Minimal, Gadget2, PressureEnergy, AnarchyPU).  DensityT<S, K>,
-// GradientT<K>, ForceT<S, K> and ForceGravityT<S, K> are the flat
-// kernel's modes (csrc/pair_flat.cu builds one library per scheme and
-// kernel); Density, Gradient and Force, the packed and ring kernels'
-// bodies, are SPHENIX with the cubic spline.
+// deval_x: models/sph/kernels.py, the six of its KERNELS) and an SPH
+// scheme (a struct of term functions and layout constants: Sphenix,
+// Minimal, Gadget2, PressureEnergy, AnarchyPU, PressureEntropy,
+// PressureEnergyMM, Phantom, Gasoline, NoneScheme; Planetary's bodies
+// are Minimal's).  DensityT<S, K>, GradientT<S, K>, ForceT<S, K> and
+// ForceGravityT<S, K> are the flat kernel's modes (csrc/pair_flat.cu
+// builds one library per scheme and kernel); Density, Gradient and
+// Force, the packed and ring kernels' bodies, are SPHENIX with the cubic
+// spline.
 //
 // A body is a struct with
 //   F, NS, NM        field count, sum outputs, max outputs
@@ -200,14 +202,44 @@ __device__ __forceinline__ void force_pot_factors(float r2, float H_inv,
 }
 
 // ---------------------------------------------------------------------------
+// What a scheme's density extras and gradient sums see of a pair
+// ---------------------------------------------------------------------------
+struct DensityPair {
+  float m_j, u_j, wi, wi_dx, kick, faci, r2;
+  float dx[3], dv[3];
+};
+
+struct GradientPair {
+  float r_inv, r, r2, m_j;
+};
+
+// The layout constants and hooks of a scheme that a struct below does not
+// declare: no u_j and no sums after the density's eight, no parameters of
+// its own, SPHENIX's gradient sum (laplace_u) and no j-side extras
+struct SchemeDefaults {
+  static constexpr bool DENSITY_NEEDS_U = false;
+  static constexpr int N_DENSITY_EXTRA = 0, NP_DENSITY = 0, NP_FORCE = 0;
+  static constexpr int N_GRAD_J_EXTRA = 0, N_GRAD_SUM = 1;
+  static __device__ __forceinline__ void density_extra(
+      const DensityPair&, const float*, float*) {}
+  // models/sph/sphenix.py gradient_terms' sum: laplace_u
+  template <class K>
+  static __device__ __forceinline__ void gradient_sums(
+      const float* si, const float* nj, const GradientPair& q,
+      const BodyParams& p, float* sums);
+};
+
+// ---------------------------------------------------------------------------
 // density: fields (mask, off0-2, v0-2, h, hinv, m), and u when the scheme's
-// density reads u_j (S::DENSITY_NEEDS_U); 8 sums, and the scheme's
-// S::N_DENSITY_EXTRA more (Pressure-Energy: pressure_bar, pressure_bar_dh)
+// density reads u_j (S::DENSITY_NEEDS_U); 8 sums, then the scheme's
+// S::N_DENSITY_EXTRA (S::density_extra, in the reference's order);
+// parameters: the kernel's 4, then the scheme's S::NP_DENSITY
 // ---------------------------------------------------------------------------
 template <class S, class K>
 struct DensityT {
   static constexpr int F = S::DENSITY_NEEDS_U ? 11 : 10;
-  static constexpr int NS = 8 + S::N_DENSITY_EXTRA, NM = 0, NP = 4;
+  static constexpr int NS = 8 + S::N_DENSITY_EXTRA, NM = 0;
+  static constexpr int NP = 4 + S::NP_DENSITY;
   enum { V0 = 4, H = 7, HINV = 8, M = 9, U = 10 };
   static __device__ __forceinline__ bool in_range(
       const float* si, const float*, float r2, const BodyParams& p) {
@@ -249,34 +281,60 @@ struct DensityT {
     sums[5] = faci * curl0;
     sums[6] = faci * curl1;
     sums[7] = faci * curl2;
-    if constexpr (S::DENSITY_NEEDS_U) {
-      // models/sph/pressure_energy.py density_terms (hydro_iact.h:92)
-      const float mjuj = m_j * nj[U];
-      sums[8] = mjuj * wi;
-      sums[9] = -mjuj * kick;
+    if constexpr (S::N_DENSITY_EXTRA > 0) {
+      DensityPair q;
+      q.m_j = m_j;
+      q.u_j = S::DENSITY_NEEDS_U ? nj[F - 1] : 0.f;
+      q.wi = wi;
+      q.wi_dx = wi_dx;
+      q.kick = kick;
+      q.faci = faci;
+      q.r2 = r2;
+      q.dx[0] = dx0;
+      q.dx[1] = dx1;
+      q.dx[2] = dx2;
+      q.dv[0] = dv0;
+      q.dv[1] = dv1;
+      q.dv[2] = dv2;
+      S::density_extra(q, p.v + 4, sums + 8);
     }
     return ok;
   }
 };
 
 // ---------------------------------------------------------------------------
-// gradient (SPHENIX's, also AnarchyPU's): fields (mask, off0-2, v0-2, h,
-// hinv, m, u, rhoinv, cs, av); 1 sum (laplace_u), 2 maxes (v_sig,
-// alpha_visc_max_ngb)
+// gradient: fields (mask, off0-2, v0-2, h, hinv, m, u, rhoinv, cs, av), then
+// the scheme's S::N_GRAD_J_EXTRA (Gasoline: shock_indicator, tensor_norm);
+// S::N_GRAD_SUM sums (S::gradient_sums; SPHENIX's laplace_u), 2 maxes
+// (v_sig, alpha_visc_max_ngb); parameters: the kernel's 4, the
+// cosmology's 2
 // ---------------------------------------------------------------------------
+enum GradientField { GV0 = 4, GH = 7, GHINV = 8, GM = 9, GU = 10,
+                     GRHOINV = 11, GCS = 12, GAV = 13, GEXTRA = 14 };
+
 template <class K>
+__device__ __forceinline__ void SchemeDefaults::gradient_sums(
+    const float* si, const float* nj, const GradientPair& q,
+    const BodyParams& p, float* sums) {
+  const float ui = q.r * si[GHINV];
+  float wi, wi_dx;
+  kernel_deval<K>(ui, p, wi, wi_dx);
+  const float delta_u_factor = (si[GU] - nj[GU]) * q.r_inv;
+  sums[0] = q.m_j * delta_u_factor * wi_dx * nj[GRHOINV];
+}
+
+template <class S, class K>
 struct GradientT {
-  static constexpr int F = 14, NS = 1, NM = 2, NP = 6;
-  enum { V0 = 4, H = 7, HINV = 8, M = 9, U = 10, RHOINV = 11, CS = 12,
-         AV = 13 };
+  static constexpr int F = 14 + S::N_GRAD_J_EXTRA, NS = S::N_GRAD_SUM;
+  static constexpr int NM = 2, NP = 6;
   static __device__ __forceinline__ bool in_range(
       const float* si, const float*, float r2, const BodyParams& p) {
-    const float h_i = si[H];
+    const float h_i = si[GH];
     return r2 < p.v[P_GAMMA2] * h_i * h_i;
   }
   static __device__ __forceinline__ float lane_reach2(
       const float* si, const BodyParams& p) {
-    return p.v[P_GAMMA2] * si[H] * si[H];
+    return p.v[P_GAMMA2] * si[GH] * si[GH];
   }
   static __device__ __forceinline__ float row_reach2(const float*,
                                                      const BodyParams&) {
@@ -286,23 +344,22 @@ struct GradientT {
       const float* si, const float* nj, float dx0, float dx1, float dx2,
       float r2, const BodyParams& p, float* sums, float* maxes) {
     const bool ok = in_range(si, nj, r2, p);
-    const float dv0 = si[V0] - nj[V0];
-    const float dv1 = si[V0 + 1] - nj[V0 + 1];
-    const float dv2 = si[V0 + 2] - nj[V0 + 2];
-    const float r_inv = r_inv_of(r2);
-    const float r = r2 * r_inv;
+    const float dv0 = si[GV0] - nj[GV0];
+    const float dv1 = si[GV0 + 1] - nj[GV0 + 1];
+    const float dv2 = si[GV0 + 2] - nj[GV0 + 2];
+    GradientPair q;
+    q.r_inv = r_inv_of(r2);
+    q.r = r2 * q.r_inv;
+    q.r2 = r2;
+    q.m_j = nj[GM];
     const float dvdr = dv0 * dx0 + dv1 * dx1 + dv2 * dx2;
     const float dvdr_Hubble = dvdr + p.v[P_A2H] * r2;
     const float omega_ij = fminf(dvdr_Hubble, 0.f);
-    const float mu_ij = p.v[P_FAC_MU] * r_inv * omega_ij;
-    const float new_v_sig = si[CS] + nj[CS] - FL(3.0) * mu_ij;
-    const float ui = r * si[HINV];
-    float wi, wi_dx;
-    kernel_deval<K>(ui, p, wi, wi_dx);
-    const float delta_u_factor = (si[U] - nj[U]) * r_inv;
-    sums[0] = nj[M] * delta_u_factor * wi_dx * nj[RHOINV];
+    const float mu_ij = p.v[P_FAC_MU] * q.r_inv * omega_ij;
+    const float new_v_sig = si[GCS] + nj[GCS] - FL(3.0) * mu_ij;
+    S::template gradient_sums<K>(si, nj, q, p, sums);
     maxes[0] = new_v_sig;
-    maxes[1] = nj[AV];
+    maxes[1] = nj[GAV];
     return ok;
   }
 };
@@ -387,15 +444,14 @@ __device__ __forceinline__ ForceTerms force_out(
 }
 
 // ---------------------------------------------------------------------------
-// SPH schemes: each struct holds its force terms (and the density hooks
-// DENSITY_NEEDS_U / N_DENSITY_EXTRA); NP_FORCE: the scheme's force
-// parameters, after the body's own (`sp`).
+// SPH schemes: each struct holds its force terms and the layout constants
+// and hooks where it departs from SchemeDefaults (its density extras, its
+// gradient sums and j-side fields); NP_DENSITY, NP_FORCE: the scheme's
+// density and force parameters, after the body's own (`sp`).
 // ---------------------------------------------------------------------------
 
 // models/sph/sphenix.py force_terms (hydro_iact.h:343-476)
-struct Sphenix {
-  static constexpr bool DENSITY_NEEDS_U = false;
-  static constexpr int N_DENSITY_EXTRA = 0, NP_FORCE = 0;
+struct Sphenix : SchemeDefaults {
   template <class K>
   static __device__ __forceinline__ ForceTerms force_terms(
       const float* si, const float* nj, float dx0, float dx1, float dx2,
@@ -442,9 +498,7 @@ struct Sphenix {
 // models/sph/minimal.py force_terms (hydro_iact.h:370-470): Monaghan
 // viscosity, rho_ij = (rho_i + rho_j) / 2, the alpha in the Balsara
 // factors, no diffusion
-struct Minimal {
-  static constexpr bool DENSITY_NEEDS_U = false;
-  static constexpr int N_DENSITY_EXTRA = 0, NP_FORCE = 0;
+struct Minimal : SchemeDefaults {
   template <class K>
   static __device__ __forceinline__ ForceTerms force_terms(
       const float* si, const float* nj, float dx0, float dx1, float dx2,
@@ -474,9 +528,7 @@ struct Minimal {
 // models/sph/gadget2.py force_terms (hydro_iact.h:618-712): the entropy
 // formulation; u_dt is the raw entropy-generation sum (end_force
 // converts it)
-struct Gadget2 {
-  static constexpr bool DENSITY_NEEDS_U = false;
-  static constexpr int N_DENSITY_EXTRA = 0, NP_FORCE = 0;
+struct Gadget2 : SchemeDefaults {
   template <class K>
   static __device__ __forceinline__ ForceTerms force_terms(
       const float* si, const float* nj, float dx0, float dx1, float dx2,
@@ -518,36 +570,74 @@ __device__ __forceinline__ PUPressure pu_pressure(
   return q;
 }
 
+// the P-U density extras (models/sph/pressure_energy.py density_terms,
+// hydro_iact.h:92): m_j u_j W and its -d/dh kick
+struct PUDensity : SchemeDefaults {
+  static constexpr bool DENSITY_NEEDS_U = true;
+  static constexpr int N_DENSITY_EXTRA = 2;
+  static __device__ __forceinline__ void density_extra(
+      const DensityPair& q, const float*, float* sums) {
+    const float mjuj = q.m_j * q.u_j;
+    sums[0] = mjuj * q.wi;
+    sums[1] = -mjuj * q.kick;
+  }
+};
+
+// models/sph/pressure_energy.py force_terms with the Balsara factors
+// bal_i, bal_j: Pressure-Energy's (the constant alpha folded in) or
+// Pressure-Energy-Monaghan's (scaled by alpha_ij)
+template <class K>
+__device__ __forceinline__ ForceTerms pressure_energy_force(
+    const float* si, const float* nj, float dx0, float dx1, float dx2,
+    float r2, const BodyParams& p, float gm1, float bal_i, float bal_j) {
+  const PairKinematics k = pair_kinematics<K>(si, nj, dx0, dx1, dx2, r2,
+                                              p);
+  const float rho_ij_inv = FL(2.0) / (si[FRHO] + nj[FRHO]);
+  const float visc = FL(-0.25) * k.v_sig * k.mu_ij * (bal_i + bal_j)
+      * rho_ij_inv;
+  const float visc_acc_term = FL(0.5) * visc * (k.wi_dr + k.wj_dr)
+      * k.r_inv;
+  const PUPressure q = pu_pressure(si, nj, k, gm1);
+  const float acc = q.sph_acc_term + visc_acc_term;
+  const float visc_du_term = FL(0.5) * visc_acc_term * k.dvdr_Hubble;
+  const float du_dt_i = q.sph_du_term_i + visc_du_term;
+  return force_out(nj, k, dx0, dx1, dx2, acc, du_dt_i * nj[FM]);
+}
+
 // models/sph/pressure_energy.py: the smoothed-pressure density extras and
 // force_terms, constant alpha in the Balsara factors; parameter gm1
-struct PressureEnergy {
-  static constexpr bool DENSITY_NEEDS_U = true;
-  static constexpr int N_DENSITY_EXTRA = 2, NP_FORCE = 1;
+struct PressureEnergy : PUDensity {
+  static constexpr int NP_FORCE = 1;
   template <class K>
   static __device__ __forceinline__ ForceTerms force_terms(
       const float* si, const float* nj, float dx0, float dx1, float dx2,
       float r2, const BodyParams& p, const float* sp) {
-    const PairKinematics k = pair_kinematics<K>(si, nj, dx0, dx1, dx2, r2,
-                                                p);
-    const float rho_ij_inv = FL(2.0) / (si[FRHO] + nj[FRHO]);
-    const float visc = FL(-0.25) * k.v_sig * k.mu_ij
-        * (si[FBAL] + nj[FBAL]) * rho_ij_inv;
-    const float visc_acc_term = FL(0.5) * visc * (k.wi_dr + k.wj_dr)
-        * k.r_inv;
-    const PUPressure q = pu_pressure(si, nj, k, sp[0]);
-    const float acc = q.sph_acc_term + visc_acc_term;
-    const float visc_du_term = FL(0.5) * visc_acc_term * k.dvdr_Hubble;
-    const float du_dt_i = q.sph_du_term_i + visc_du_term;
-    return force_out(nj, k, dx0, dx1, dx2, acc, du_dt_i * nj[FM]);
+    return pressure_energy_force<K>(si, nj, dx0, dx1, dx2, r2, p, sp[0],
+                                    si[FBAL], nj[FBAL]);
+  }
+};
+
+// models/sph/pressure_energy_mm.py force_terms (hydro_iact.h:296-310):
+// Pressure-Energy's with alpha_ij = (alpha_i + alpha_j) / 2 on the bare
+// Balsara factors; Pressure-Energy's density; parameter gm1
+struct PressureEnergyMM : PUDensity {
+  static constexpr int NP_FORCE = 1;
+  template <class K>
+  static __device__ __forceinline__ ForceTerms force_terms(
+      const float* si, const float* nj, float dx0, float dx1, float dx2,
+      float r2, const BodyParams& p, const float* sp) {
+    const float alpha_ij = FL(0.5) * (si[FAL] + nj[FAL]);
+    return pressure_energy_force<K>(si, nj, dx0, dx1, dx2, r2, p, sp[0],
+                                    si[FBAL] * alpha_ij,
+                                    nj[FBAL] * alpha_ij);
   }
 };
 
 // models/sph/anarchy_pu.py force_terms (hydro_iact.h:330-440): the P-U
 // equation of motion with summed alphas and the soundspeed-triggered
 // diffusion; Pressure-Energy's density; parameter gm1
-struct AnarchyPU {
-  static constexpr bool DENSITY_NEEDS_U = true;
-  static constexpr int N_DENSITY_EXTRA = 2, NP_FORCE = 1;
+struct AnarchyPU : PUDensity {
+  static constexpr int NP_FORCE = 1;
   template <class K>
   static __device__ __forceinline__ ForceTerms force_terms(
       const float* si, const float* nj, float dx0, float dx1, float dx2,
@@ -569,6 +659,173 @@ struct AnarchyPU {
         * (si[FU] - nj[FU]) * (k.wi_dr + k.wj_dr) * rho_ij_inv;
     const float du_dt_i = q.sph_du_term_i + visc_du_term + diff_du_term;
     return force_out(nj, k, dx0, dx1, dx2, acc, du_dt_i * nj[FM]);
+  }
+};
+
+// models/sph/pressure_entropy.py (hydro_iact.h:55-100, :356-444): the
+// weighted-density sums m_j A_j^{1/gamma} W and its kick, and the
+// Hopkins cross-entropy equation of motion with rho_bar = (P_bar /
+// A)^{1/gamma} per pair; u carries the entropic function A, P the
+// smoothed pressure; u_dt is the raw viscous entropy generation (end_force
+// converts it); parameter 1/gamma in density and force
+__device__ __forceinline__ float s_gamma(float A, float g_inv) {
+  return powf(fmaxf(A, FL(1e-30)), g_inv);
+}
+
+struct PressureEntropy : SchemeDefaults {
+  static constexpr bool DENSITY_NEEDS_U = true;
+  static constexpr int N_DENSITY_EXTRA = 2, NP_DENSITY = 1, NP_FORCE = 1;
+  static __device__ __forceinline__ void density_extra(
+      const DensityPair& q, const float* sp, float* sums) {
+    const float mSj = q.m_j * s_gamma(q.u_j, sp[0]);
+    sums[0] = mSj * q.wi;
+    sums[1] = -mSj * q.kick;
+  }
+  template <class K>
+  static __device__ __forceinline__ ForceTerms force_terms(
+      const float* si, const float* nj, float dx0, float dx1, float dx2,
+      float r2, const BodyParams& p, const float* sp) {
+    const PairKinematics k = pair_kinematics<K>(si, nj, dx0, dx1, dx2, r2,
+                                                p);
+    const float g_inv = sp[0];
+    const float u_i = si[FU], u_j = nj[FU];
+    const float P_i = si[FP], P_j = nj[FP];
+    const float S_i = s_gamma(u_i, g_inv);
+    const float S_j = s_gamma(u_j, g_inv);
+    const float rho_bar_i = powf(fmaxf(P_i, FL(1e-30))
+                                 / fmaxf(u_i, FL(1e-30)), g_inv);
+    const float rho_bar_j = powf(fmaxf(P_j, FL(1e-30))
+                                 / fmaxf(u_j, FL(1e-30)), g_inv);
+    const float P2_i = P_i / (rho_bar_i * rho_bar_i);
+    const float P2_j = P_j / (rho_bar_j * rho_bar_j);
+    const float rho_ij_inv = FL(2.0) / (si[FRHO] + nj[FRHO]);
+    const float visc = FL(-0.25) * k.v_sig * k.mu_ij
+        * (si[FBAL] + nj[FBAL]) * rho_ij_inv;
+    const float visc_term = FL(0.5) * visc * (k.wi_dr + k.wj_dr);
+    const float sph_term = ((S_j / S_i - si[FFGH] / S_i) * P2_i * k.wi_dr
+                            + (S_i / S_j - nj[FFGH] / S_j) * P2_j
+                            * k.wj_dr);
+    const float acc = (visc_term + sph_term) * k.r_inv;
+    return force_out(nj, k, dx0, dx1, dx2, acc,
+                     nj[FM] * visc_term * k.r_inv * k.dvdr_Hubble);
+  }
+};
+
+// models/sph/phantom.py (hydro_iact.h:240, :330-400): a gradient that
+// keeps only the maxes (laplace_u = 0); the force with the viscosity
+// convolved per particle density (the alpha in the Balsara factors) and
+// Price's diffusion with constant alphas
+struct Phantom : SchemeDefaults {
+  template <class K>
+  static __device__ __forceinline__ void gradient_sums(
+      const float*, const float*, const GradientPair&, const BodyParams&,
+      float* sums) {
+    sums[0] = 0.f;
+  }
+  template <class K>
+  static __device__ __forceinline__ ForceTerms force_terms(
+      const float* si, const float* nj, float dx0, float dx1, float dx2,
+      float r2, const BodyParams& p, const float*) {
+    const PairKinematics k = pair_kinematics<K>(si, nj, dx0, dx1, dx2, r2,
+                                                p);
+    const float r_inv = k.r_inv, wi_dr = k.wi_dr, wj_dr = k.wj_dr;
+    const float f_ij = 1.f - si[FFGH] * nj[FMINV];
+    const float f_ji = 1.f - nj[FFGH] * si[FMINV];
+    const float visc = FL(-0.125) * k.v_sig * k.mu_ij
+        * (si[FBAL] + nj[FBAL]);
+    const float kernel_mean = (wi_dr * f_ij * si[FRHOINV]
+                               + wj_dr * f_ji * nj[FRHOINV]);
+    const float visc_acc_term = FL(0.5) * visc * kernel_mean * r_inv;
+    const float P_over_rho2_i = si[FPR2] * f_ij;
+    const float P_over_rho2_j = nj[FPR2] * f_ji;
+    const float sph_acc_term = (P_over_rho2_i * wi_dr
+                                + P_over_rho2_j * wj_dr) * r_inv;
+    const float acc = sph_acc_term + visc_acc_term;
+    const float sph_du_term_i = P_over_rho2_i * k.dvdr * r_inv * wi_dr;
+    const float visc_du_term = FL(0.5) * visc_acc_term * k.dvdr_Hubble;
+    const float v_diff = sqrtf(FL(2.0) * fabsf(si[FP] - nj[FP])
+                               / (si[FRHO] + nj[FRHO]))
+        + k.dvdr_Hubble * r_inv;
+    const float alpha_diff = FL(0.5) * (si[FAD] + nj[FAD]);
+    const float diff_du_term = alpha_diff * v_diff * (si[FU] - nj[FU])
+        * FL(0.5) * kernel_mean;
+    const float du_dt_i = sph_du_term_i + visc_du_term + diff_du_term;
+    return force_out(nj, k, dx0, dx1, dx2, acc, du_dt_i * nj[FM]);
+  }
+};
+
+// models/sph/gasoline.py (hydro_iact.h:128-173, :273-339, :460-559): the
+// density's 13 extras (grad_P0-2, vgrad00-22, weighted_wcount), the
+// gradient's shock-limiter and correction-weight sums over the
+// neighbours' shock_indicator and tensor_norm (its two j-side fields),
+// and the geometric-density force with the kernel correction f
+struct Gasoline : SchemeDefaults {
+  static constexpr bool DENSITY_NEEDS_U = true;
+  static constexpr int N_DENSITY_EXTRA = 13;
+  static constexpr int N_GRAD_J_EXTRA = 2, N_GRAD_SUM = 2;
+  static __device__ __forceinline__ void density_extra(
+      const DensityPair& q, const float*, float* sums) {
+    const float fac = q.faci;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) sums[k] = fac * q.u_j * q.dx[k];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) sums[3 + 3 * i + j] = fac * q.dv[i]
+          * q.dx[j];
+    sums[12] = fac * q.r2;
+  }
+  template <class K>
+  static __device__ __forceinline__ void gradient_sums(
+      const float* si, const float* nj, const GradientPair& q,
+      const BodyParams& p, float* sums) {
+    const float ui = q.r * si[GHINV];
+    float wi, wi_dx;
+    kernel_deval<K>(ui, p, wi, wi_dx);
+    const float shock_j = nj[GEXTRA], tensor_j = nj[GEXTRA + 1];
+    const float shock_ratio_j = tensor_j > 0.f
+        ? shock_j / fmaxf(tensor_j, FL(1e-30)) : 0.f;
+    sums[0] = q.m_j * shock_ratio_j * wi;
+    sums[1] = q.m_j * q.r2 * wi_dx * nj[GRHOINV] * q.r_inv;
+  }
+  template <class K>
+  static __device__ __forceinline__ ForceTerms force_terms(
+      const float* si, const float* nj, float dx0, float dx1, float dx2,
+      float r2, const BodyParams& p, const float*) {
+    const PairKinematics k = pair_kinematics<K>(si, nj, dx0, dx1, dx2, r2,
+                                                p);
+    const float r_inv = k.r_inv;
+    const float kernel_gradient = FL(0.5) * (k.wi_dr * si[FFGH]
+                                             + k.wj_dr * nj[FFGH]);
+    const float rho_ij = si[FRHO] + nj[FRHO];
+    const float alpha = si[FAL] + nj[FAL];
+    const float omega_ij = fminf(k.dvdr_Hubble, 0.f);
+    const float visc = omega_ij < 0.f
+        ? (FL(-0.25) * alpha * (si[FCS] + nj[FCS]) * k.mu_ij
+           + FL(3.0) * k.mu_ij * k.mu_ij) / (FL(0.5) * rho_ij)
+        : 0.f;
+    const float visc_acc_term = visc * kernel_gradient * r_inv;
+    const float rr_inv = si[FRHOINV] * nj[FRHOINV];
+    const float sph_acc_term = (si[FP] + nj[FP]) * r_inv * kernel_gradient
+        * rr_inv;
+    const float acc = sph_acc_term + visc_acc_term;
+    const float sph_du_term_i = si[FP] * k.dvdr * r_inv * kernel_gradient
+        * rr_inv;
+    const float visc_du_term = FL(0.5) * visc_acc_term * k.dvdr_Hubble;
+    const float diff_du_term = FL(2.0) * (si[FAD] + nj[FAD])
+        * (si[FU] - nj[FU]) * kernel_gradient / rho_ij;
+    const float du_dt_i = sph_du_term_i + visc_du_term + diff_du_term;
+    return force_out(nj, k, dx0, dx1, dx2, acc, du_dt_i * nj[FM]);
+  }
+};
+
+// models/sph/none.py: no hydro force, every sum and the signal velocity 0
+struct NoneScheme : SchemeDefaults {
+  template <class K>
+  static __device__ __forceinline__ ForceTerms force_terms(
+      const float*, const float*, float, float, float, float,
+      const BodyParams&, const float*) {
+    return ForceTerms{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   }
 };
 
@@ -667,7 +924,7 @@ struct ForceGravityT {
 // the packed and ring kernels' bodies, and the flat kernel's default
 // library: SPHENIX with the cubic spline
 using Density = DensityT<Sphenix, CubicSpline>;
-using Gradient = GradientT<CubicSpline>;
+using Gradient = GradientT<Sphenix, CubicSpline>;
 using Force = ForceT<Sphenix, CubicSpline>;
 using ForceGravity = ForceGravityT<Sphenix, CubicSpline>;
 

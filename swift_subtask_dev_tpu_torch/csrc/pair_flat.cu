@@ -636,7 +636,7 @@ using ModeForce = ForceT<SPH_SCHEME, SPH_KERNEL>;
 using ModeForceGravity = ForceGravityT<SPH_SCHEME, SPH_KERNEL>;
 PAIR_FLAT_ENTRY(density, ModeDensity)
 #if SPH_GRADIENT
-using ModeGradient = GradientT<SPH_KERNEL>;
+using ModeGradient = GradientT<SPH_SCHEME, SPH_KERNEL>;
 PAIR_FLAT_ENTRY(gradient, ModeGradient)
 #endif
 PAIR_FLAT_ENTRY(force, ModeForce)

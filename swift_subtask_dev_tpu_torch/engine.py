@@ -18,14 +18,18 @@ loop that reads ``conv.all()`` each trip; the rebucket's ``cond`` is an
 ``if``; ``multi_step``'s ``scan`` is a Python loop that keeps the bin
 deviation flag on the device until ``run_fixed_dt`` reads it once.
 
-The step runs any ported SPH scheme (``models/sph``: SPHENIX, Minimal,
-Gadget2, Pressure-Energy, Anarchy-PU, under any of the six smoothing
-kernels) through ``p.mod``'s hooks, where and as the reference's engine
-calls them: the ghost's ``end_density`` / ``ghost_h_update``, the
-gradient loop only when ``HAS_GRADIENT_LOOP``, ``prepare_force`` every
-step, ``end_force`` (Gadget2 converts its raw entropy sum there), the
-drift's ``predict_extra`` and the kicks' ``kick_extra``.  The 27-cell
-backends run SPHENIX with the cubic spline only.
+The step runs any ported SPH scheme (``models/sph`` ``SCHEME_MODULES``,
+under any of the six smoothing kernels) through ``p.mod``'s hooks, where
+and as the reference's engine calls them: the ghost's ``end_density`` /
+``ghost_h_update``, the gradient loop only when ``HAS_GRADIENT_LOOP``,
+``prepare_force`` every step, ``end_force`` (the entropy schemes convert
+their raw entropy sum there), the drift's ``predict_extra`` and the
+kicks' ``kick_extra``; after each of prepare_gradient, end_gradient and
+prepare_force the keys the scheme names (``PREPARE_GRADIENT_KEYS``,
+``GRADIENT_END_KEYS``, ``PREPARE_FORCE_KEYS``) are written back on the
+active particles.  The scheme's int32 state (``EXTRA_STATE_INT_KEYS``,
+Planetary's ``mat_id``) rides loading, rebucket and re-grid as int32.
+The 27-cell backends run SPHENIX with the cubic spline only.
 
 A step that hits a capacity or coverage wall raises :class:`RegridNeeded`;
 ``Engine.step`` restores the pre-step state, rebuilds the grid from the
@@ -255,9 +259,10 @@ def _gas_loops(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
         s[k] = _where_active(active, s_fb[k], s[k])
 
     # --- prepare gradient + gradient loop (schemes that have one) -----------
+    # (each hook's results written back on the active particles for the
+    # keys the scheme names: the reference engine's lists)
     rg = p.mod.reset_gradient(p.mod.prepare_gradient(p, s, cosmo))
-    for k in ("f_gradh", "pressure", "soundspeed", "balsara", "v_sig",
-              "alpha_visc_max_ngb"):
+    for k in p.mod.PREPARE_GRADIENT_KEYS + ("v_sig", "alpha_visc_max_ngb"):
         s[k] = torch.where(active, rg[k], s[k])
     if p.mod.HAS_GRADIENT_LOOP:
         grad = hydro_flat.gradient_loop(grid, s, p, cosmo, active_i=active,
@@ -265,12 +270,12 @@ def _gas_loops(grid: CellGrid, p: SPHENIXParams, cfg: EngineConfig,
         for k, v in grad.items():
             s[k] = torch.where(active, v, s[k])
         eg = p.mod.end_gradient(s)
-        s["laplace_u"] = torch.where(active, eg["laplace_u"],
-                                     s["laplace_u"])
+        for k in p.mod.GRADIENT_END_KEYS:
+            s[k] = torch.where(active, eg[k], s[k])
 
     # --- prepare force (alpha evolution) + force loop -----------------------
     pf = p.mod.prepare_force(p, s, cosmo, dt_alpha_table[tb])
-    for k in ("alpha_visc", "div_v_prev", "alpha_diff"):
+    for k in p.mod.PREPARE_FORCE_KEYS:
         s[k] = torch.where(active, pf[k], s[k])
     ra = p.mod.reset_acceleration(s)
     for k in ("a_hydro", "u_dt", "h_dt"):
@@ -750,10 +755,12 @@ class Engine:
 
     # --- setup ------------------------------------------------------------
     def load_particles(self, pos, m, v, u, h, pid=None, Z=None,
-                       elem_frac=None):
+                       elem_frac=None, extra_fields=None):
         """Bucket raw particle arrays into the tiled state (z-sorted on the
         flat backend); ``Z`` (N,) and ``elem_frac`` (N, 9) are the
-        chemistry carriers, when the run has them."""
+        chemistry carriers, when the run has them; ``extra_fields`` a dict
+        of more (N,) arrays bucketed alongside (Planetary's ``mat_id``),
+        int32 for the scheme's ``EXTRA_STATE_INT_KEYS``, f32 else."""
         n = len(pos)
         if pid is None:
             pid = np.arange(n, dtype=np.int32)
@@ -770,6 +777,10 @@ class Engine:
             fields["Z"] = np.asarray(Z, np.float32)
         if elem_frac is not None:
             fields["elem_frac"] = np.asarray(elem_frac, np.float32)
+        int_keys = self.sph.mod.EXTRA_STATE_INT_KEYS
+        for k, arr in (extra_fields or {}).items():
+            fields[k] = np.asarray(
+                arr, np.int32 if k in int_keys else np.float32)
         out, mask, off, n_over = bucket_fields(
             self.grid, np.asarray(pos), fields, device=self.device,
             zsort=self.cfg.backend == "flat")
@@ -805,9 +816,12 @@ class Engine:
                                            device=dev),
             "drift_accum": torch.zeros((), dtype=F32, device=dev),
         }
-        # scheme-specific state (Pressure-Energy's smoothed pressure)
+        # scheme-specific state (Pressure-Energy's smoothed pressure);
+        # keys loaded from extra_fields keep their values
         for k in self.sph.mod.EXTRA_STATE_KEYS:
-            self.state.setdefault(k, z())
+            self.state.setdefault(
+                k, torch.zeros((C, K), dtype=I32, device=dev)
+                if k in int_keys else z())
 
     # --- split PM-mesh timestep (kick.h:255, engine.c:2406) ----------------
     def _kick_fac(self, lo: int, hi: int) -> float:

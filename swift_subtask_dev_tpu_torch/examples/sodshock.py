@@ -8,11 +8,11 @@ A 3D periodic shock tube, (rho, P) = (1, 1) left of x = 1 and (0.125,
 0.1) right of it, on the flat backend's column grid; the particle profile
 at ``--tend`` is compared with the exact Riemann solution over 0.35 < x <
 1.75, and the example prints L1(rho)/mean, L1(vx) and the energy drift
-(kinetic + internal, float64 sums; Gadget2's entropy converted back to
-internal energy).  PASS, as the reference's, when L1(rho)/mean < 0.05
-and the drift is below 1e-3.  ``--scheme`` and ``--kernel`` take the
-reference YAML's SPH:scheme and SPH:kernel values.  Runs on the card
-unless ``--cpu`` is given.
+(kinetic + internal, float64 sums; the entropy of Gadget2 and
+Pressure-Entropy converted back to internal energy).  PASS, as the
+reference's, when L1(rho)/mean < 0.05 and the drift is below 1e-3.
+``--scheme`` and ``--kernel`` take the reference YAML's SPH:scheme and
+SPH:kernel values.  Runs on the card unless ``--cpu`` is given.
 
 ``--y-aspect`` (the IC's y and z extent, 0.5 in the reference) lets a
 small ``--n`` fit three columns across the tube: the column edge must
@@ -32,7 +32,7 @@ import torch
 from ..engine import Engine, EngineConfig
 from ..grid.cellgrid import CellGrid, global_positions
 from ..ics import sod_shock_ic
-from ..models.sph import SCHEMES, gadget2, scheme_name
+from ..models.sph import SCHEMES, u_is_entropy
 from ..models.sph.kernels import KERNELS
 from ..validation import sod_solution
 
@@ -43,8 +43,8 @@ def make_engine(n: int, t_end: float, scheme: str = "sphenix",
                 kernel: str = "cubic-spline", device="cuda",
                 y_aspect: float = 0.5) -> Engine:
     """The example's IC, scheme, column grid and engine, particles
-    loaded (Gadget2's u slot holds the entropy, from the IC's exact
-    densities: 1 left of x = 1, 0.125 right of it)."""
+    loaded (an entropy scheme's u slot holds the entropy, from the IC's
+    exact densities: 1 left of x = 1, 0.125 right of it)."""
     ic = sod_shock_ic(n_l=n, y_aspect=y_aspect)
     K = KERNELS[kernel]
     P = SCHEMES[scheme](kernel=K, h_max=float(ic["h"].max() * 4))
@@ -54,9 +54,9 @@ def make_engine(n: int, t_end: float, scheme: str = "sphenix",
     eng = Engine(grid, P, EngineConfig(dt_max=1e-2, backend="flat"), 0.0,
                  t_end + 1e-9, device=device)
     u = ic["u"]
-    if scheme == "gadget2":
+    if u_is_entropy(P):
         rho0 = np.where(ic["pos"][:, 0] < 1.0, 1.0, 0.125)
-        u = gadget2.entropy_from_internal_energy(P, rho0, u).numpy()
+        u = P.mod.entropy_from_internal_energy(P, rho0, u).numpy()
     eng.load_particles(ic["pos"], ic["m"], ic["v"], u, ic["h"])
     return eng
 
@@ -68,8 +68,9 @@ def energy(eng: Engine) -> float:
     m = s["m"][live].double()
     v = s["v_full"][live].double()
     u = s["u_full"][live]
-    if scheme_name(eng.sph) == "gadget2":
-        u = gadget2.internal_energy_from_entropy(eng.sph, s["rho"][live], u)
+    if u_is_entropy(eng.sph):
+        u = eng.sph.mod.internal_energy_from_entropy(eng.sph, s["rho"][live],
+                                                     u)
     return float((0.5 * m * (v * v).sum(-1) + m * u.double()).sum())
 
 
@@ -120,8 +121,11 @@ def main(argv=None) -> int:
                     help="left-state lattice spacings per unit length")
     ap.add_argument("--tend", type=float, default=0.2)
     ap.add_argument("--scheme", default="sphenix",
-                    help="SPH:scheme (sphenix, minimal, gadget2, "
-                    "pressure-energy, anarchy-pu)")
+                    choices=[n for n in SCHEMES
+                             if n not in ("none", "planetary")],
+                    help="SPH:scheme (the hydro schemes of the flat "
+                    "backend: None has no hydrodynamics, Planetary needs "
+                    "its materials)")
     ap.add_argument("--kernel", default="cubic-spline",
                     choices=sorted(KERNELS), help="SPH:kernel")
     ap.add_argument("--y-aspect", type=float, default=0.5)

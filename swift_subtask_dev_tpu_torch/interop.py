@@ -4,8 +4,10 @@ The system has no weights; what crosses between the two packages is the
 tiled particle state.  ``state_from_reference`` takes a reference
 ``Engine.state`` converted with ``np.asarray`` and returns the port's state
 with the same keys, shapes and dtypes (``drift_accum`` as a 0-dim tensor;
-the SPH scheme's ``EXTRA_STATE_KEYS``, such as the Pressure-Energy
-schemes' smoothed pressure, among them);
+the SPH scheme's ``EXTRA_STATE_KEYS`` among them: the Pressure-Energy
+schemes' smoothed pressure, Pressure-Entropy's weighted density,
+Gasoline's velocity-gradient tensor and shock state, and Planetary's
+``mat_id``, int32 as its ``EXTRA_STATE_INT_KEYS`` says);
 ``multi_state_from_reference`` does so for each species of a reference
 ``MultiEngine.state``.
 """

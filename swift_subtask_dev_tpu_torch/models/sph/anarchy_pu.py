@@ -32,9 +32,16 @@ HAS_GRADIENT_LOOP = True
 DENSITY_NEEDS_U = True
 DENSITY_EXTRA_KEYS = pe.DENSITY_EXTRA_KEYS
 EXTRA_STATE_KEYS = pe.EXTRA_STATE_KEYS
+EXTRA_STATE_INT_KEYS = ()
+GRADIENT_SUM_KEYS = sphenix.GRADIENT_SUM_KEYS
+GRADIENT_J_EXTRA = ()
+PREPARE_GRADIENT_KEYS = sphenix.PREPARE_GRADIENT_KEYS
+GRADIENT_END_KEYS = sphenix.GRADIENT_END_KEYS
+PREPARE_FORCE_KEYS = sphenix.PREPARE_FORCE_KEYS
 
 # P-U density / pressure machinery
 density_terms = pe.density_terms
+density_params = pe.density_params
 force_params = pe.force_params
 end_density = pe.end_density
 no_neighbours_fallback = pe.no_neighbours_fallback

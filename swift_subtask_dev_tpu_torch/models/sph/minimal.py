@@ -24,6 +24,12 @@ HAS_GRADIENT_LOOP = False
 DENSITY_NEEDS_U = False
 DENSITY_EXTRA_KEYS = ()
 EXTRA_STATE_KEYS = ()
+EXTRA_STATE_INT_KEYS = ()
+GRADIENT_SUM_KEYS = sphenix.GRADIENT_SUM_KEYS
+GRADIENT_J_EXTRA = ()
+PREPARE_GRADIENT_KEYS = sphenix.PREPARE_GRADIENT_KEYS
+GRADIENT_END_KEYS = sphenix.GRADIENT_END_KEYS
+PREPARE_FORCE_KEYS = sphenix.PREPARE_FORCE_KEYS
 
 # scheme-generic lifecycle (identical formulas in SWIFT's Minimal hydro.h)
 density_terms = sphenix.density_terms
@@ -38,6 +44,7 @@ kick_extra = sphenix.kick_extra
 compute_timestep = sphenix.compute_timestep
 timestep_h_change_limit = sphenix.timestep_h_change_limit
 init_part = sphenix.init_part
+density_params = sphenix.density_params
 force_params = sphenix.force_params
 
 

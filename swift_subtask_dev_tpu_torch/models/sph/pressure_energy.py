@@ -33,6 +33,12 @@ HAS_GRADIENT_LOOP = False
 DENSITY_NEEDS_U = True
 DENSITY_EXTRA_KEYS = ("pressure_bar", "pressure_bar_dh")
 EXTRA_STATE_KEYS = ("pressure_bar", "pressure_bar_dh")
+EXTRA_STATE_INT_KEYS = ()
+GRADIENT_SUM_KEYS = sphenix.GRADIENT_SUM_KEYS
+GRADIENT_J_EXTRA = ()
+PREPARE_GRADIENT_KEYS = sphenix.PREPARE_GRADIENT_KEYS
+GRADIENT_END_KEYS = sphenix.GRADIENT_END_KEYS
+PREPARE_FORCE_KEYS = sphenix.PREPARE_FORCE_KEYS
 
 # scheme-generic lifecycle shared with the other density-energy schemes
 ghost_h_update = sphenix.ghost_h_update
@@ -41,6 +47,7 @@ end_force = sphenix.end_force
 compute_timestep = sphenix.compute_timestep
 timestep_h_change_limit = sphenix.timestep_h_change_limit
 init_part = sphenix.init_part
+density_params = sphenix.density_params
 
 
 @dataclass(frozen=True)

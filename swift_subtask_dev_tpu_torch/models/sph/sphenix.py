@@ -18,9 +18,18 @@ the loops dispatch through, which every scheme of ``models/sph``
 declares in full: ``NAME`` (its SPH:scheme), ``PARAMS``, ``CUDA_STRUCT``
 (its struct in ``csrc/pair_bodies.cuh``), ``HAS_GRADIENT_LOOP``,
 ``DENSITY_NEEDS_U`` (u_j in the density body's fields),
-``DENSITY_EXTRA_KEYS`` (its sums after the eight), ``EXTRA_STATE_KEYS``,
-``force_params(p)`` (the force body's parameters after the common ones),
-the term functions and the lifecycle hooks.
+``DENSITY_EXTRA_KEYS`` (its sums after the eight), ``EXTRA_STATE_KEYS``
+(``EXTRA_STATE_INT_KEYS`` among them are int32, such as Planetary's
+``mat_id``), the gradient body's ``GRADIENT_SUM_KEYS`` and
+``GRADIENT_J_EXTRA`` (state fields its pair terms read on both sides,
+after the common ones), the keys each lifecycle hook writes back on the
+active particles (``PREPARE_GRADIENT_KEYS``, ``GRADIENT_END_KEYS``,
+``PREPARE_FORCE_KEYS``: the reference engine's), ``density_params(p)`` and
+``force_params(p)`` (the density and force bodies' parameters after the
+common ones), the term functions and the lifecycle hooks.  A scheme whose
+u slot holds the entropic function A also defines
+``entropy_from_internal_energy`` and ``internal_energy_from_entropy``
+(``models.sph.u_is_entropy``).
 """
 
 from __future__ import annotations
@@ -41,6 +50,15 @@ HAS_GRADIENT_LOOP = True
 DENSITY_NEEDS_U = False
 DENSITY_EXTRA_KEYS = ()
 EXTRA_STATE_KEYS = ()
+EXTRA_STATE_INT_KEYS = ()
+GRADIENT_SUM_KEYS = ("laplace_u",)
+GRADIENT_J_EXTRA = ()
+# the keys the engine writes back after each hook (the reference engine's
+# defaults, engine.py:505-523); v_sig and alpha_visc_max_ngb follow
+# prepare_gradient too, reset_gradient's
+PREPARE_GRADIENT_KEYS = ("f_gradh", "pressure", "soundspeed", "balsara")
+GRADIENT_END_KEYS = ("laplace_u",)
+PREPARE_FORCE_KEYS = ("alpha_visc", "div_v_prev", "alpha_diff")
 
 HYDRO_DIM = 3.0
 HYDRO_DIM_INV = 1.0 / 3.0
@@ -510,6 +528,11 @@ def no_neighbours_fallback(p: SPHENIXParams, s):
             "div_v": w("div_v", 0.0),
             "laplace_u": w("laplace_u", 0.0),
             "rot_v": torch.where(none[..., None], 0.0, s["rot_v"])}
+
+
+def density_params(p) -> tuple:
+    """The density body's own parameters: none."""
+    return ()
 
 
 def force_params(p) -> tuple:

@@ -16,15 +16,16 @@ the 27-cell engines every slot that is not active (the reference's
 27-cell engines recompute every slot); the callers merge the results into
 active particles only.
 
-The SPH loops take any ported scheme (``p.mod``: SPHENIX, Minimal,
-Gadget2, Pressure-Energy, Anarchy-PU) under any of the six smoothing
-kernels, as the reference's loops trace ``p.mod``'s term functions into
-the kernel: the density body reads u_j and adds the scheme's
-``DENSITY_EXTRA_KEYS`` sums when ``DENSITY_NEEDS_U``; every scheme's
-force shares one field list.  On the flat engine each (scheme, kernel)
-pair is a mode of K1 (``PairBody.mode``, its own CUDA library); the
-27-cell engines run SPHENIX with the cubic spline only and refuse
-anything else.
+The SPH loops take any ported scheme (``p.mod``, ``models/sph``
+``SCHEME_MODULES``) under any of the six smoothing kernels, as the
+reference's loops trace ``p.mod``'s term functions into the kernel: the
+density body reads u_j when ``DENSITY_NEEDS_U`` and adds the scheme's
+``DENSITY_EXTRA_KEYS`` sums; the gradient body reads the scheme's
+``GRADIENT_J_EXTRA`` fields (padded with 0) and sums its
+``GRADIENT_SUM_KEYS``; every scheme's force shares one field list.  On
+the flat engine each (scheme, kernel) pair is a mode of K1
+(``PairBody.mode``, its own CUDA library); the 27-cell engines run
+SPHENIX with the cubic spline only and refuse anything else.
 
 Conventions kept from the reference: padded slots hold division-safe
 fills (``_san``: h, m, rho, P = 1); the gravity mass is ``m * mask``; the
@@ -200,13 +201,18 @@ def density_pass(s: Dict, p: SPHENIXParams) -> PairPass:
 
     body = PairBody("density",
                     DENSITY_FIELDS + (("u",) if needs_u else ()),
-                    8 + len(extra_keys), 0, _kernel_params(p), fn,
+                    8 + len(extra_keys), 0,
+                    _kernel_params(p) + p.mod.density_params(p), fn,
                     sph_mode(p))
     return PairPass(body, fields, range_scale=float(p.kernel.gamma))
 
 
 def gradient_pass(s: Dict, p: SPHENIXParams,
                   cosmo: CosmoFactors) -> PairPass:
+    """The gradient body: the scheme's ``GRADIENT_SUM_KEYS`` sums and the
+    v_sig and neighbour-alpha maxes; its ``GRADIENT_J_EXTRA`` state
+    fields follow the common ones (0 in empty slots), each passed to the
+    terms from both sides, as the reference's loop does."""
     if not p.mod.HAS_GRADIENT_LOOP:
         raise ValueError(f"the SPH scheme {scheme_name(p)!r} has no "
                          f"gradient loop")
@@ -219,19 +225,27 @@ def gradient_pass(s: Dict, p: SPHENIXParams,
     fields["rhoinv"] = 1.0 / torch.clamp_min(_san(s, "rho"), 1e-30)
     fields["cs"] = _san(s, "soundspeed", 0.0)
     fields["av"] = _san(s, "alpha_visc", 0.0)
+    sum_keys = p.mod.GRADIENT_SUM_KEYS
+    j_extra = p.mod.GRADIENT_J_EXTRA
+    for k in j_extra:
+        fields[k] = _san(s, k, 0.0)
     gamma2 = float(p.kernel.gamma2)
 
     def fn(sf, nf, dx, r2):
         h_i = sf("h")
         ok = r2 < gamma2 * h_i * h_i
         dv = tuple(sf(f"v{k}") - nf(f"v{k}") for k in range(3))
+        extra = []
+        for k in j_extra:
+            extra += [sf(k), nf(k)]
         t = p.mod.gradient_terms(
             p, dx, r2, sf("hinv"), nf("m"), dv, sf("u"), nf("u"),
-            nf("rhoinv"), sf("cs"), nf("cs"), nf("av"), cosmo)
-        return ok, [t["sum"]["laplace_u"]], \
+            nf("rhoinv"), sf("cs"), nf("cs"), nf("av"), *extra, cosmo)
+        return ok, [t["sum"][k] for k in sum_keys], \
             [t["max"]["v_sig"], t["max"]["alpha_visc_max_ngb"]]
 
-    body = PairBody("gradient", GRADIENT_FIELDS, 1, 2,
+    body = PairBody("gradient", GRADIENT_FIELDS + tuple(j_extra),
+                    len(sum_keys), 2,
                     _kernel_params(p) + _cosmo_params(cosmo), fn,
                     sph_mode(p))
     return PairPass(body, fields, range_scale=float(p.kernel.gamma))
@@ -401,10 +415,11 @@ def gradient_loop(grid: CellGrid, s: Dict, p: SPHENIXParams,
     sums, maxes = _apply(engine, grid, gradient_pass(s, p, cosmo),
                          active_i)
     m = s["mask"]
-    return {"laplace_u": sums[0] * m,
-            "v_sig": torch.maximum(s["v_sig"], maxes[0]),
-            "alpha_visc_max_ngb": torch.maximum(s["alpha_visc_max_ngb"],
-                                                maxes[1])}
+    out = {k: sums[i] * m for i, k in enumerate(p.mod.GRADIENT_SUM_KEYS)}
+    out["v_sig"] = torch.maximum(s["v_sig"], maxes[0])
+    out["alpha_visc_max_ngb"] = torch.maximum(s["alpha_visc_max_ngb"],
+                                              maxes[1])
+    return out
 
 
 def _force_out(s, sums, maxes):

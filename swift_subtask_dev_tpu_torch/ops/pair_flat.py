@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -666,7 +666,9 @@ def _binder(names):
 
 LIBRARY = KernelLibrary("pair_flat", SOURCES,
                         _binder(BODY_NAMES + PROBE_BODY_NAMES))
-_MODE_LIBRARIES: Dict[str, KernelLibrary] = {}
+# mode libraries by their nvcc flags: two modes with the same scheme
+# struct and kernel (Planetary's and Minimal's) share one
+_MODE_LIBRARIES: Dict[Tuple[str, ...], KernelLibrary] = {}
 
 
 def mode_body_names(mode: str) -> Tuple[str, ...]:
@@ -679,24 +681,26 @@ def mode_body_names(mode: str) -> Tuple[str, ...]:
 def mode_library(mode: str) -> KernelLibrary:
     """The library of an SPH mode ``"<scheme>/<kernel>"`` (``""``: the
     default ``LIBRARY``): csrc/pair_flat.cu built with that scheme's and
-    kernel's structs, holding ``mode_body_names(mode)``."""
+    kernel's structs, holding ``mode_body_names(mode)``.  Modes whose
+    scheme struct, kernel and gradient flag agree share their library."""
     if not mode:
         return LIBRARY
-    lib = _MODE_LIBRARIES.get(mode)
+    scheme, kernel = mode.split("/")
+    if scheme not in SCHEME_STRUCTS or kernel not in KERNEL_STRUCTS:
+        raise ValueError(f"no flat kernel mode {mode!r} (schemes "
+                         f"{list(SCHEME_STRUCTS)}, kernels "
+                         f"{list(KERNEL_STRUCTS)})")
+    struct = SCHEME_STRUCTS[scheme]
+    grad = int(SCHEME_MODULES[scheme].HAS_GRADIENT_LOOP)
+    flags = (f"-DSPH_SCHEME={struct}",
+             f"-DSPH_KERNEL={KERNEL_STRUCTS[kernel]}",
+             f"-DSPH_GRADIENT={grad}")
+    lib = _MODE_LIBRARIES.get(flags)
     if lib is None:
-        scheme, kernel = mode.split("/")
-        if scheme not in SCHEME_STRUCTS or kernel not in KERNEL_STRUCTS:
-            raise ValueError(f"no flat kernel mode {mode!r} (schemes "
-                             f"{list(SCHEME_STRUCTS)}, kernels "
-                             f"{list(KERNEL_STRUCTS)})")
-        grad = int(SCHEME_MODULES[scheme].HAS_GRADIENT_LOOP)
         lib = KernelLibrary(
-            f"pair_flat_{scheme}_{kernel}", SOURCES,
-            _binder(mode_body_names(mode)),
-            flags=(f"-DSPH_SCHEME={SCHEME_STRUCTS[scheme]}",
-                   f"-DSPH_KERNEL={KERNEL_STRUCTS[kernel]}",
-                   f"-DSPH_GRADIENT={grad}"))
-        _MODE_LIBRARIES[mode] = lib
+            f"pair_flat_{struct}_{KERNEL_STRUCTS[kernel]}", SOURCES,
+            _binder(mode_body_names(mode)), flags=flags)
+        _MODE_LIBRARIES[flags] = lib
     return lib
 
 
@@ -704,6 +708,13 @@ def all_modes() -> Tuple[str, ...]:
     """Every SPH mode but the default: each scheme under each kernel."""
     return tuple(f"{s}/{k}" for s in SCHEME_STRUCTS for k in KERNEL_STRUCTS
                  if (s, k) != ("sphenix", "cubic-spline"))
+
+
+def mode_libraries() -> List[KernelLibrary]:
+    """The distinct libraries of ``all_modes()``, one per scheme struct
+    and kernel."""
+    return list({id(lib): lib for lib in map(mode_library, all_modes())}
+                .values())
 
 
 ATTRIBUTES = ("registers", "local_bytes", "static_smem", "dynamic_smem",

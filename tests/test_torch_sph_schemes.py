@@ -30,7 +30,10 @@ seeded numpy inputs:
   against ``Engine(backend="flat")``; Gadget2 in
   tests/test_torch_sodshock.py;
 * refusals: the 27-cell engines and ``MultiEngine`` with a scheme or
-  kernel other than SPHENIX's cubic spline, and unported scheme names.
+  kernel other than SPHENIX's cubic spline, and the unported scheme
+  names (the Gizmo schemes); the other six schemes of the reference's
+  flat backend build (their own tests: tests/test_torch_sph_more_schemes.py
+  and tests/test_torch_planetary.py).
 """
 
 import numpy as np
@@ -563,9 +566,7 @@ def test_sph_mode_names():
         kernel=kernels.QUARTIC_SPLINE)) == "sphenix/quartic-spline"
 
 
-@pytest.mark.parametrize("name", ["pressure-entropy", "phantom", "gasoline",
-                                  "none", "planetary", "gizmo-mfm",
-                                  "pressure-energy-monaghan", "gizmo-mfv"])
+@pytest.mark.parametrize("name", ["gizmo-mfm", "gizmo-mfv"])
 def test_unported_scheme_names_raise(name):
     with pytest.raises(NotImplementedError, match=f"'{name}' is not "
                        "ported yet"):
@@ -574,9 +575,24 @@ def test_unported_scheme_names_raise(name):
         SCHEMES["no-such-scheme"]
 
 
+@pytest.mark.parametrize("name", ["pressure-entropy", "phantom", "gasoline",
+                                  "none", "planetary",
+                                  "pressure-energy-monaghan"])
+def test_flat_schemes_build_their_params_and_mode(name):
+    """Every scheme the reference runs on its flat backend is registered:
+    its params build and name their module, and each kernel gives it a
+    mode of K1."""
+    P = SCHEMES[name]()
+    assert P.mod is SCHEME_MODULES[name] and P.mod.NAME == name
+    assert hydro_flat.sph_mode(P) == f"{name}/cubic-spline"
+    assert hydro_flat.sph_mode(SCHEMES[name](
+        kernel=kernels.WENDLAND_C2)) == f"{name}/wendland-C2"
+
+
 @pytest.mark.parametrize("backend", ["pallas", "pallas_ring"])
 @pytest.mark.parametrize("scheme,kernel", [("minimal", "cubic-spline"),
-                                           ("sphenix", "wendland-C2")])
+                                           ("sphenix", "wendland-C2"),
+                                           ("gasoline", "cubic-spline")])
 def test_27_cell_backends_refuse_other_modes(backend, scheme, kernel):
     _, pp = _params(scheme, kernel)
     grid = CellGrid(box=(1.0, 1.0, 1.0), cdim=(3, 3, 3), K=64)
@@ -594,7 +610,8 @@ def test_27_cell_loops_refuse_other_modes(loop_state, engine):
 
 
 @pytest.mark.parametrize("scheme,kernel", [("anarchy-pu", "cubic-spline"),
-                                           ("sphenix", "wendland-C6")])
+                                           ("sphenix", "wendland-C6"),
+                                           ("phantom", "cubic-spline")])
 def test_multi_engine_refuses_other_modes(scheme, kernel):
     _, pp = _params(scheme, kernel)
     grid = CellGrid(box=(1.0, 1.0, 1.0), cdim=(3, 3, 1), K=128)

@@ -4,7 +4,8 @@
 Runs the reference's ``examples/sodshock/run.py`` (its IC, h_max,
 interaction range, dt_max, end time and L1 measure) with the scheme and
 kernel named, and prints one JSON line per run: L1(rho)/mean, L1(vx), the
-energy drift (internal energy converted from the entropy for Gadget2),
+energy drift (internal energy converted from the entropy for Gadget2
+and Pressure-Entropy),
 steps and seconds.  The port's ``chip_smoke.py`` phase 14 holds its own
 Sod runs at n = 64 to these numbers at n = 32 (``SOD_REFERENCE_L1``
 there).
@@ -17,7 +18,10 @@ interpreter on the CPU); ``--backend xla`` is the reference example's own
     JAX_PLATFORMS=cpu python tools/sod_reference_l1.py --n 32 \\
         --runs sphenix:cubic-spline minimal:cubic-spline \\
         gadget2:cubic-spline pressure-energy:cubic-spline \\
-        anarchy-pu:cubic-spline anarchy-pu:wendland-C2
+        anarchy-pu:cubic-spline anarchy-pu:wendland-C2 \\
+        pressure-entropy:cubic-spline \\
+        pressure-energy-monaghan:cubic-spline phantom:cubic-spline \\
+        gasoline:cubic-spline
 """
 
 import argparse
@@ -42,8 +46,6 @@ def run(scheme: str, kernel: str, n: int, t_end: float,
     from swift_subtask_dev_tpu.grid import CellGrid, global_positions
     from swift_subtask_dev_tpu.ics import sod_shock_ic
     from swift_subtask_dev_tpu.models.sph import SCHEMES, kernels
-    from swift_subtask_dev_tpu.models.sph.gadget2 import (
-        entropy_from_internal_energy, internal_energy_from_entropy)
     from swift_subtask_dev_tpu.validation import sod_solution
 
     ic = sod_shock_ic(n_l=n, y_aspect=0.5)
@@ -60,12 +62,14 @@ def run(scheme: str, kernel: str, n: int, t_end: float,
     eng = Engine(grid, P, EngineConfig(dt_max=1e-2, backend=backend), 0.0,
                  t_end + 1e-9)
     u = ic["u"]
-    entropy = scheme == "gadget2"
+    # the schemes whose u slot holds the entropic function A carry its
+    # conversions in their module
+    entropy = hasattr(P.mod, "entropy_from_internal_energy")
     if entropy:
         # the IC's densities are exact: 1 left of x = 1, 0.125 right
         rho0 = np.where(ic["pos"][:, 0] < 1.0, 1.0, 0.125).astype(
             np.float32)
-        u = np.asarray(entropy_from_internal_energy(P, rho0, u),
+        u = np.asarray(P.mod.entropy_from_internal_energy(P, rho0, u),
                        np.float32)
     eng.load_particles(ic["pos"], ic["m"], ic["v"], u, ic["h"])
     eng.init_particles()
@@ -77,7 +81,7 @@ def run(scheme: str, kernel: str, n: int, t_end: float,
         v = np.asarray(s["v_full"])[mask].astype(np.float64)
         uf = np.asarray(s["u_full"])[mask]
         if entropy:
-            uf = np.asarray(internal_energy_from_entropy(
+            uf = np.asarray(P.mod.internal_energy_from_entropy(
                 P, jnp.asarray(np.asarray(s["rho"])[mask]),
                 jnp.asarray(uf)))
         return float((0.5 * m * (v * v).sum(-1)
